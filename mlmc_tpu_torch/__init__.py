@@ -1,0 +1,28 @@
+"""mlmc_tpu_torch — the storage-free MLMC path of ``mlmc_tpu`` in PyTorch,
+with its fused sample -> moment kernels written in CUDA for Hopper.
+
+Module paths and public names mirror ``mlmc_tpu``: the counterpart of
+``mlmc_tpu/X.py`` is ``mlmc_tpu_torch/X.py``. Importing the package has no
+side effects; the CUDA kernels build at their first launch.
+"""
+from mlmc_tpu_torch.moments import (
+    Moments, Monomial, Fourier, Legendre, TransformedMoments)
+from mlmc_tpu_torch.random.distributions import Norm, TorchDistr, as_torch_distr
+from mlmc_tpu_torch.sim.simulation import Simulation
+from mlmc_tpu_torch.sim.synth_simulation import SynthSimulation
+from mlmc_tpu_torch.level_simulation import LevelSimulation
+from mlmc_tpu_torch.quantity.quantity_spec import QuantitySpec
+from mlmc_tpu_torch.ops.fused_estimate import (
+    MomentAccumulators, accumulators_to_estimates, fused_level_moments,
+    fused_mlmc_moments)
+from mlmc_tpu_torch.ops.cuda_kernels import (
+    SynthMomentResult, synth_mlmc_pipeline, synth_mlmc_pipeline_from_noise,
+    synth_moment_pipeline, synth_moment_pipeline_from_noise, synth_normals)
+from mlmc_tpu_torch.estimator import (
+    estimate_n_samples_for_target_variance, calc_level_params,
+    determine_level_parameters, determine_n_samples)
+from mlmc_tpu_torch.fused_driver import (
+    FusedMLMC, level_sim_chunk_fn, sim_level_chunk_fns)
+from mlmc_tpu_torch.tool.simple_distribution import (
+    SimpleDistribution, construct_ortogonal_moments)
+from mlmc_tpu_torch.convert import accumulators_from_jax, moments_from_jax

@@ -1,0 +1,496 @@
+"""Fused synthetic-sample -> Legendre-moment pipeline on the GPU.
+
+Counterpart of ``mlmc_tpu/ops/pallas_kernels.py``. Each entry point takes
+the same arguments as its Pallas twin plus a ``device``. On a CUDA device
+it launches the hand-written kernels of ``csrc/synth_mlmc.cu``; on the CPU
+it runs the plain PyTorch version of the same computation. A CUDA call
+never falls back to the plain version: if the kernel cannot be built or
+launched, it raises.
+
+Kernel A (``synth_mlmc_cuda``) computes, for every level at once,
+
+    sums   [L, R]     sum (phi_f - phi_c)       (phi_c = 0 on level 0)
+    sums2  [L, R]     sum (phi_f - phi_c)^2
+    cov_f  [L, R, R]  sum phi_f phi_f^T
+    cov_c  [L, R, R]  sum phi_c phi_c^T
+    n_valid [L]       exact count of valid samples
+
+with per-sample values in f32 (the Pallas value path) and every sum in
+f64. It either draws x ~ N(0, 1) in the kernel (RNG mode) or reads x from
+memory (memory mode). Kernel B (``normals_dump_cuda``) writes the normals
+that RNG mode draws, for statistical tests of the stream.
+
+Random numbers: sample ``i`` of level ``l`` under ``seed`` is the normal
+from one Philox4x32-10 call with key (seed low word, seed high word) and
+counter (i low word, i high word, l, 0); words 0 and 1 feed Box-Muller with
+the bit map of ``_normal_pair`` (top 24 bits, u1 offset by half an ulp),
+cosine branch. The plain version (``philox_normals``) maps indices to
+normals the same way, so the kernel and the plain version draw the same
+samples up to the last bits of the f32 transcendentals.
+"""
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from mlmc_tpu_torch.ops._build import load_library
+
+R_PAD = 32  # largest supported moment count (as in the Pallas kernels)
+#: samples per thread block of kernel A; ~1.5k blocks at 1e8 samples
+SPAN = 1 << 16
+#: samples per step of the plain version's chunk loop
+PLAIN_CHUNK = 1 << 20
+
+_MASK32 = 0xFFFFFFFF
+PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+_TWO_PI_F32 = float(np.float32(6.283185307179586))
+_ERR_FLOOR_F32 = float(np.float32(1e-4))
+
+
+class SynthMomentResult(NamedTuple):
+    """Accumulators of one level ([R], [R], [R, R], [R, R], []) or, from
+    the stacked internal calls, of all levels ([L, R], ..., [L])."""
+
+    sums: torch.Tensor
+    sums2: torch.Tensor
+    cov_fine: torch.Tensor
+    cov_coarse: torch.Tensor
+    n_valid: torch.Tensor
+
+
+# --------------------------------------------------------------------- #
+# plain PyTorch version: Philox4x32-10 + Box-Muller
+# --------------------------------------------------------------------- #
+def _sqrt_f32(a):
+    """Correctly rounded f32 square root, as the kernel's ``sqrtf``.
+    PyTorch's CPU f32 ``sqrt`` is not always correctly rounded; the f64
+    root rounded to f32 is (53 >= 2 * 24 + 2 bits)."""
+    return torch.sqrt(a.to(torch.float64)).to(torch.float32)
+
+
+def _mulhilo(a, m):
+    """(hi, lo) 32-bit words of ``a * m`` for int64 tensors holding uint32
+    values and a uint32 constant, without overflowing int64."""
+    p_lo = a * (m & 0xFFFF)
+    p_hi = a * (m >> 16)
+    s = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (s >> 32), s & _MASK32
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 (Salmon et al., Random123) on int64 tensors.
+
+    :param counter: four int64 tensors (or ints) holding uint32 words
+    :param key: two Python ints (uint32 words)
+    :return: four int64 tensors holding the output uint32 words
+    """
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for rnd in range(10):
+        if rnd > 0:
+            k0 = (k0 + PHILOX_W0) & _MASK32
+            k1 = (k1 + PHILOX_W1) & _MASK32
+        hi0, lo0 = _mulhilo(c0, PHILOX_M0)
+        hi1, lo1 = _mulhilo(c2, PHILOX_M1)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def box_muller(bits0, bits1):
+    """Standard normals from two uint32 words, mapped as mlmc_tpu's
+    ``_normal_pair``: top 24 bits, ``u1`` offset by half an ulp; f32."""
+    u1 = (bits0 >> 8).to(torch.float32) * (1.0 / (1 << 24)) + (0.5 / (1 << 24))
+    u2 = (bits1 >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    r = _sqrt_f32(-2.0 * torch.log(u1))
+    return r * torch.cos(_TWO_PI_F32 * u2)
+
+
+def _key_words(seed):
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return seed & _MASK32, seed >> 32
+
+
+def philox_normals(seed, level, start, n, *, device=None):
+    """Plain version of the kernels' normal stream: normals of sample
+    indices ``start .. start + n - 1`` of ``level`` under ``seed``."""
+    idx = torch.arange(int(start), int(start) + int(n), dtype=torch.int64,
+                       device=device)
+    zero = torch.zeros_like(idx)
+    c = philox4x32_10((idx & _MASK32, idx >> 32, zero + int(level), zero),
+                      _key_words(seed))
+    return box_muller(c[0], c[1])
+
+
+# --------------------------------------------------------------------- #
+# plain PyTorch version: per-sample values and f64 sums
+# --------------------------------------------------------------------- #
+def _f32(value):
+    """A Python float rounded to the nearest f32, as Pallas sees constants."""
+    return float(np.float32(value))
+
+
+def _domain_map(domain):
+    a, b = float(domain[0]), float(domain[1])
+    return _f32(2.0 / (b - a)), _f32((a + b) / 2.0)
+
+
+def _legendre_rows_f32(t, valid, n_moments):
+    """f32 three-term recurrence [n, R]; invalid samples give zero rows.
+
+    Division is by 0-d tensors on the same device: PyTorch's CUDA
+    division by a host scalar multiplies by its reciprocal, which is not
+    the correctly rounded quotient the kernel computes."""
+    t = torch.where(valid, t, torch.zeros_like(t))
+    v = valid.to(torch.float32)
+    denoms = torch.arange(n_moments, dtype=torch.float32, device=t.device)
+    rows = [v]
+    if n_moments > 1:
+        rows.append(t)
+    prev2, prev1 = v, t
+    for n in range(2, n_moments):
+        cur = ((2 * n - 1) * t * prev1 - (n - 1) * prev2) / denoms[n]
+        rows.append(cur)
+        prev2, prev1 = prev1, cur
+    return torch.stack(rows, dim=1)
+
+
+def level_moments_plain(x, n_moments, *, fine_step, coarse_step, has_coarse,
+                        domain, absolute=False):
+    """Plain version of kernel A's body for one block of samples ``x``.
+
+    :param absolute: sum the absolute values of the terms instead (the
+        S_abs that scales the error bounds of ``ops/precision.py``)
+    :return: (sums, sums2, cov_f, cov_c) float64 and n_valid int64
+    """
+    t_scale, t_shift = _domain_map(domain)
+    x = x.to(torch.float32)
+    err = _sqrt_f32(_ERR_FLOOR_F32 + torch.abs(x))
+    fine = x + _f32(fine_step) * err
+    coarse = x + _f32(coarse_step) * err
+    t_f = (fine - t_shift) * t_scale
+    t_c = (coarse - t_shift) * t_scale
+    valid = (t_f >= -1.0) & (t_f <= 1.0)
+    if has_coarse:
+        valid = valid & (t_c >= -1.0) & (t_c <= 1.0)
+    pf = _legendre_rows_f32(t_f, valid, n_moments).to(torch.float64)
+    if has_coarse:
+        pc = _legendre_rows_f32(t_c, valid, n_moments).to(torch.float64)
+        d = pf - pc
+    else:
+        pc = None
+        d = pf
+    if absolute:
+        d, pf = d.abs(), pf.abs()
+        pc = None if pc is None else pc.abs()
+    cov_c = pc.T @ pc if pc is not None else torch.zeros(
+        n_moments, n_moments, dtype=torch.float64, device=x.device)
+    return (d.sum(0), (d * d).sum(0), pf.T @ pf, cov_c,
+            valid.sum().to(torch.int64))
+
+
+def synth_mlmc_plain(x_levels, seed, n_per_level, fine_steps, coarse_steps,
+                     has_coarse, n_moments, *, domain, device, absolute=False):
+    """Plain version of kernel A for all levels; stacked SynthMomentResult.
+
+    :param x_levels: per-level f32 tensors (memory mode) or None (draw the
+        normals of ``seed``, as RNG mode does)
+    :param absolute: return the sums of absolute terms (S_abs) instead
+    """
+    L = len(n_per_level)
+    R = n_moments
+    f64 = dict(dtype=torch.float64, device=device)
+    sums = torch.zeros(L, R, **f64)
+    sums2 = torch.zeros(L, R, **f64)
+    cov_f = torch.zeros(L, R, R, **f64)
+    cov_c = torch.zeros(L, R, R, **f64)
+    n_valid = torch.zeros(L, dtype=torch.int64, device=device)
+    for lvl in range(L):
+        n = int(n_per_level[lvl])
+        for start in range(0, n, PLAIN_CHUNK):
+            m = min(PLAIN_CHUNK, n - start)
+            if x_levels is None:
+                x = philox_normals(seed, lvl, start, m, device=device)
+            else:
+                x = x_levels[lvl][start:start + m]
+            s, s2, cf, cc, nv = level_moments_plain(
+                x, R, fine_step=fine_steps[lvl], coarse_step=coarse_steps[lvl],
+                has_coarse=has_coarse[lvl], domain=domain, absolute=absolute)
+            sums[lvl] += s
+            sums2[lvl] += s2
+            cov_f[lvl] += cf
+            cov_c[lvl] += cc
+            n_valid[lvl] += nv
+    return SynthMomentResult(sums, sums2, cov_f, cov_c, n_valid)
+
+
+# --------------------------------------------------------------------- #
+# CUDA kernel wrappers
+# --------------------------------------------------------------------- #
+def _slot_codes(n_moments):
+    """Accumulator slots of kernel A: sums, sums2, then the upper
+    triangles of cov_f and cov_c, each coded mode << 16 | a << 8 | b."""
+    R = n_moments
+    codes = [(0 << 16) | (r << 8) | r for r in range(R)]
+    codes += [(1 << 16) | (r << 8) | r for r in range(R)]
+    for mode in (2, 3):
+        codes += [(mode << 16) | (r << 8) | s
+                  for r in range(R) for s in range(r, R)]
+    return np.asarray(codes, dtype=np.int32)
+
+
+def _block_tables(n_per_level, x_offsets):
+    """Per-block (level, start, count, x offset) and per-level (first
+    block, block count); a zero-sample level keeps one empty block, so
+    its outputs are written as zeros."""
+    blocks, lvl_blocks = [], []
+    for lvl, n in enumerate(n_per_level):
+        n = int(n)
+        n_blk = max(-(-n // SPAN), 1)
+        lvl_blocks.append((len(blocks), n_blk))
+        for b in range(n_blk):
+            start = b * SPAN
+            blocks.append((lvl, start, max(min(SPAN, n - start), 0),
+                           x_offsets[lvl] + start))
+    return (np.asarray(blocks, dtype=np.int64),
+            np.asarray(lvl_blocks, dtype=np.int64))
+
+
+def _check(code, what):
+    if code != 0:
+        raise RuntimeError("%s: CUDA error %d" % (what, code))
+
+
+def _cuda_device(device):
+    """``device`` as an indexed CUDA device; raises if it is not one or
+    CUDA is unavailable (a CUDA request never runs on the CPU)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("the CUDA kernels need a CUDA device, got %s" % device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("a CUDA device was requested but "
+                           "torch.cuda.is_available() is false")
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def synth_mlmc_cuda(x, seed, n_per_level, fine_steps, coarse_steps,
+                    has_coarse, n_moments, *, domain, device):
+    """Launch kernel A (and its per-level reduction) on ``device``.
+
+    :param x: flat f32 CUDA tensor of all levels' samples, level after
+        level (memory mode), or None (RNG mode)
+    :return: stacked SynthMomentResult (float64, int64 counts)
+    """
+    device = _cuda_device(device)
+    lib = load_library()
+    L, R = len(n_per_level), int(n_moments)
+    if x is not None:
+        if x.device != device or x.dtype != torch.float32 \
+                or not x.is_contiguous():
+            raise ValueError("x must be a contiguous float32 tensor on %s"
+                             % device)
+        if x.numel() != sum(int(n) for n in n_per_level):
+            raise ValueError("x holds %d samples, levels need %d"
+                             % (x.numel(), sum(int(n) for n in n_per_level)))
+    offsets = np.concatenate([[0], np.cumsum([int(n) for n in n_per_level])])
+    blocks, lvl_blocks = _block_tables(n_per_level, offsets[:-1])
+    lvl = np.asarray([(_f32(f), _f32(c), 1.0 if h else 0.0) for f, c, h in
+                      zip(fine_steps, coarse_steps, has_coarse)],
+                     dtype=np.float32)
+    codes = _slot_codes(R)
+    t_scale, t_shift = _domain_map(domain)
+    k0, k1 = _key_words(seed)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    blk_d, lvl_d, lb_d, codes_d = (dev(blocks), dev(lvl), dev(lvl_blocks),
+                                   dev(codes))
+    n_blk, n_slots = blocks.shape[0], codes.shape[0]
+    partial = torch.empty(n_blk, n_slots, dtype=torch.float64, device=device)
+    partial_n = torch.empty(n_blk, dtype=torch.int64, device=device)
+    sums = torch.empty(L, R, dtype=torch.float64, device=device)
+    sums2 = torch.empty(L, R, dtype=torch.float64, device=device)
+    cov_f = torch.empty(L, R, R, dtype=torch.float64, device=device)
+    cov_c = torch.empty(L, R, R, dtype=torch.float64, device=device)
+    n_valid = torch.empty(L, dtype=torch.int64, device=device)
+    # the C launcher runs on the current device: make it ``device``
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _check(lib.synth_mlmc_launch(
+            None if x is None else x.data_ptr(), blk_d.data_ptr(), n_blk,
+            lvl_d.data_ptr(), lb_d.data_ptr(), L, codes_d.data_ptr(), n_slots,
+            R, t_scale, t_shift, k0, k1, partial.data_ptr(),
+            partial_n.data_ptr(), sums.data_ptr(), sums2.data_ptr(),
+            cov_f.data_ptr(), cov_c.data_ptr(), n_valid.data_ptr(), stream),
+            "synth_mlmc kernel")
+    synth_mlmc_cuda.launches += 1
+    return SynthMomentResult(sums, sums2, cov_f, cov_c, n_valid)
+
+
+synth_mlmc_cuda.launches = 0
+
+
+def normals_dump_cuda(seed, n_samples, *, level=0, start=0, device):
+    """Launch kernel B: the RNG-mode normals of ``level`` on ``device``."""
+    device = _cuda_device(device)
+    lib = load_library()
+    out = torch.empty(int(n_samples), dtype=torch.float32, device=device)
+    k0, k1 = _key_words(seed)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _check(lib.normals_dump_launch(out.data_ptr(), int(n_samples),
+                                       int(start), int(level), k0, k1, stream),
+               "normals_dump kernel")
+    normals_dump_cuda.launches += 1
+    return out
+
+
+normals_dump_cuda.launches = 0
+
+
+def launch_counts():
+    """Launches of each kernel since the last reset."""
+    return {"synth_mlmc": synth_mlmc_cuda.launches,
+            "normals_dump": normals_dump_cuda.launches}
+
+
+def reset_launch_counts():
+    synth_mlmc_cuda.launches = 0
+    normals_dump_cuda.launches = 0
+
+
+# --------------------------------------------------------------------- #
+# public entry points (mlmc_tpu.ops.pallas_kernels names)
+# --------------------------------------------------------------------- #
+def _resolve_device(device):
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cuda":
+        return _cuda_device(device)
+    if device.type != "cpu":
+        raise ValueError("unsupported device %s" % device)
+    return device
+
+
+def _synth_levels(x_levels, seed, n_per_level, fine_steps, coarse_steps,
+                  has_coarse, n_moments, domain, device):
+    """Dispatch on the device: kernel A on CUDA, the plain version on CPU."""
+    if not 1 <= n_moments <= R_PAD:
+        raise ValueError("n_moments must be in [1, %d], got %d"
+                         % (R_PAD, n_moments))
+    if device.type == "cuda":
+        x = None if x_levels is None else torch.cat(
+            [xl.reshape(-1) for xl in x_levels]).contiguous()
+        return synth_mlmc_cuda(x, seed, n_per_level, fine_steps, coarse_steps,
+                               has_coarse, n_moments, domain=domain,
+                               device=device)
+    return synth_mlmc_plain(x_levels, seed, n_per_level, fine_steps,
+                            coarse_steps, has_coarse, n_moments,
+                            domain=domain, device=device)
+
+
+def _per_level(stacked):
+    return [SynthMomentResult(*(field[lvl] for field in stacked))
+            for lvl in range(stacked.sums.shape[0])]
+
+
+def _ladder(level_steps):
+    fine = [float(h) for h in level_steps]
+    coarse = [0.0] + fine[:-1]
+    has_coarse = [lvl > 0 for lvl in range(len(fine))]
+    return fine, coarse, has_coarse
+
+
+def synth_mlmc_pipeline(seed, n_moments, n_per_level, level_steps, *,
+                        domain, device=None):
+    """The whole multi-level synthetic estimate in one kernel launch.
+
+    :param seed: integer seed of the Philox stream
+    :param n_per_level: per-level sample counts
+    :param level_steps: fine steps; level l's coarse step is
+        level_steps[l-1] and level 0 has no coarse part
+    :param domain: moment domain (a, b) mapped onto [-1, 1]
+    :return: list of SynthMomentResult (float64 sums, int64 n_valid)
+    """
+    if len(n_per_level) != len(level_steps):
+        raise ValueError(
+            "n_per_level has %d entries but level_steps has %d"
+            % (len(n_per_level), len(level_steps)))
+    fine, coarse, has_coarse = _ladder(level_steps)
+    return _per_level(_synth_levels(
+        None, seed, [int(n) for n in n_per_level], fine, coarse, has_coarse,
+        int(n_moments), domain, _resolve_device(device)))
+
+
+def _as_f32_tensor(x, device):
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32).reshape(-1)
+    return torch.as_tensor(np.asarray(x, dtype=np.float32).reshape(-1),
+                           device=device)
+
+
+def synth_mlmc_pipeline_from_noise(noise_per_level, n_moments, level_steps, *,
+                                   domain, device=None):
+    """Memory mode of kernel A: level l's x values come from
+    ``noise_per_level[l]`` instead of the in-kernel generator.
+
+    :param device: defaults to the device of the first tensor (CPU for
+        numpy input)
+    :return: list of SynthMomentResult, one per level
+    """
+    if len(noise_per_level) != len(level_steps):
+        raise ValueError(
+            "noise_per_level has %d entries but level_steps has %d"
+            % (len(noise_per_level), len(level_steps)))
+    if device is None:
+        first = noise_per_level[0]
+        device = first.device if isinstance(first, torch.Tensor) else "cpu"
+    device = _resolve_device(device)
+    xs = [_as_f32_tensor(x, device) for x in noise_per_level]
+    fine, coarse, has_coarse = _ladder(level_steps)
+    return _per_level(_synth_levels(
+        xs, 0, [x.numel() for x in xs], fine, coarse, has_coarse,
+        int(n_moments), domain, device))
+
+
+def synth_moment_pipeline(seed, n_moments, n_samples, *, fine_step,
+                          coarse_step, domain, is_level0=False, device=None):
+    """One level (the Pallas single-level entry point): an L=1 call of
+    kernel A drawing level 0's stream of ``seed``.
+
+    :param is_level0: no coarse part (dphi = phi_f, cov_coarse = 0)
+    :return: SynthMomentResult
+    """
+    return _per_level(_synth_levels(
+        None, seed, [int(n_samples)], [float(fine_step)], [float(coarse_step)],
+        [not is_level0], int(n_moments), domain, _resolve_device(device)))[0]
+
+
+def synth_moment_pipeline_from_noise(noise, n_moments, *, fine_step,
+                                     coarse_step, domain, is_level0=False,
+                                     device=None):
+    """Memory mode of kernel A for one level (x read from ``noise``).
+
+    :return: SynthMomentResult
+    """
+    if device is None:
+        device = noise.device if isinstance(noise, torch.Tensor) else "cpu"
+    device = _resolve_device(device)
+    x = _as_f32_tensor(noise, device)
+    return _per_level(_synth_levels(
+        [x], 0, [x.numel()], [float(fine_step)], [float(coarse_step)],
+        [not is_level0], int(n_moments), domain, device))[0]
+
+
+def synth_normals(seed, n_samples, *, level=0, start=0, device=None):
+    """The normals that RNG mode draws for ``level`` (kernel B on CUDA).
+
+    :return: float32 tensor [n_samples]
+    """
+    device = _resolve_device(device)
+    if device.type == "cuda":
+        return normals_dump_cuda(seed, n_samples, level=level, start=start,
+                                 device=device)
+    return philox_normals(seed, level, start, n_samples, device=device)

@@ -1,0 +1,186 @@
+"""Fused sample -> moment estimation for any batch simulation.
+
+Counterpart of ``mlmc_tpu/ops/fused_estimate.py``: samples are drawn chunk
+by chunk from a level's generator, pushed through the moment basis and
+reduced to per-level accumulators; they are never stored.
+
+    generator --sample_chunk_fn--> (fine, coarse, failed)   [C]
+              --eval_all---------> (phi_f, phi_c)           [C, R]
+              --mask/diff--------> dphi                     [C, R]
+              --reduce-----------> sums [R], sums2 [R], cov_f, cov_c [R, R]
+
+The chunk loop carries a Kahan compensation across chunks and folds it in
+at the end, as the JAX loop does. Plain PyTorch: the JAX package runs this
+path through XLA, not through a Pallas kernel.
+"""
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class MomentAccumulators(NamedTuple):
+    """Per-level streaming state (tensors on the level's device)."""
+
+    sums: torch.Tensor          # [R] sum of (phi_f - phi_c) over valid samples
+    sums2: torch.Tensor         # [R] sum of squares of the diff
+    cov_fine: torch.Tensor      # [R, R] sum of phi_f phi_f^T
+    cov_coarse: torch.Tensor    # [R, R] sum of phi_c phi_c^T
+    n_valid: torch.Tensor       # [] valid-sample count
+    n_total: torch.Tensor       # [] processed-sample count
+
+
+def level_generator(seed, level, device=None):
+    """The generator of one level's stream, seeded from (seed, level)."""
+    state = np.random.SeedSequence([int(seed), int(level)]).generate_state(
+        1, dtype=np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+def _moment_chunk(phi_f, phi_c, valid, acc_dtype):
+    """One chunk's contributions. phi_*: [C, ..., R]; valid: [C] (a sample
+    is dropped as a whole if any component is invalid)."""
+    vf = valid.reshape(valid.shape + (1,) * (phi_f.ndim - 1))
+    phi_f = torch.where(vf, phi_f, torch.zeros_like(phi_f)).to(acc_dtype)
+    phi_c = torch.where(vf, phi_c, torch.zeros_like(phi_c)).to(acc_dtype)
+    dphi = phi_f - phi_c
+    sums = dphi.sum(0)
+    sums2 = (dphi * dphi).sum(0)
+    cov_f = torch.einsum("c...r,c...s->...rs", phi_f, phi_f)
+    cov_c = torch.einsum("c...r,c...s->...rs", phi_c, phi_c)
+    n_valid = valid.sum().to(acc_dtype)
+    return sums, sums2, cov_f, cov_c, n_valid
+
+
+def _any_nan(x):
+    """[C] mask: any NaN over the trailing axes of x [C, ...]."""
+    return torch.isnan(x.reshape(x.shape[0], -1)).any(dim=1)
+
+
+def fused_level_moments(sample_chunk_fn, moments_fn, generator, n_samples,
+                        chunk_size, *, is_level0, acc_dtype=torch.float64,
+                        device=None):
+    """Stream one level's samples through the fused moment pipeline.
+
+    :param sample_chunk_fn: ``f(generator, n, device) -> (fine, coarse,
+        failed)``; fine/coarse are [n] for a scalar QoI or [n, M]
+    :param moments_fn: moment basis (Moments instance)
+    :param generator: this level's generator; drawing continues its stream
+    :param n_samples: samples to draw on this level
+    :param chunk_size: samples per loop step
+    :param is_level0: True -> coarse contributions are zero
+    :param acc_dtype: accumulator dtype
+    :return: MomentAccumulators
+    """
+    n_samples = int(n_samples)
+    comp = None
+    acc = None
+    for start in range(0, n_samples, chunk_size):
+        m = min(chunk_size, n_samples - start)
+        fine, coarse, failed = sample_chunk_fn(generator, m, device)
+        valid = ~failed & ~_any_nan(fine)
+        if not is_level0:
+            # level 0's coarse output is ignored entirely, so a NaN there
+            # must not invalidate the sample
+            valid = valid & ~_any_nan(coarse)
+        phi_f = moments_fn.eval_all(fine)
+        phi_c = (torch.zeros_like(phi_f) if is_level0
+                 else moments_fn.eval_all(coarse))
+        # moment-domain clipping produces NaN lanes -> invalid sample
+        valid = valid & ~_any_nan(phi_f)
+        if not is_level0:
+            valid = valid & ~_any_nan(phi_c)
+        chunk = _moment_chunk(torch.nan_to_num(phi_f), torch.nan_to_num(phi_c),
+                              valid, acc_dtype)
+        if acc is None:
+            acc = list(chunk[:4]) + [chunk[4]]
+            comp = [torch.zeros_like(a) for a in chunk[:4]]
+            n_total = m
+            continue
+        for k in range(4):
+            # Kahan step: the cross-chunk error stays at one rounding of
+            # the final value
+            y = chunk[k] - comp[k]
+            t = acc[k] + y
+            comp[k] = (t - acc[k]) - y
+            acc[k] = t
+        acc[4] = acc[4] + chunk[4]
+        n_total += m
+    if acc is None:
+        R = moments_fn.size
+        probe = sample_chunk_fn(generator, 0, device)[0]
+        shape = tuple(probe.shape[1:])
+        zeros = dict(dtype=acc_dtype, device=device)
+        return MomentAccumulators(
+            torch.zeros(shape + (R,), **zeros), torch.zeros(shape + (R,), **zeros),
+            torch.zeros(shape + (R, R), **zeros), torch.zeros(shape + (R, R), **zeros),
+            torch.zeros((), **zeros), torch.zeros((), **zeros))
+    # fold the residual compensation (true total ~ acc - comp)
+    return MomentAccumulators(
+        acc[0] - comp[0], acc[1] - comp[1], acc[2] - comp[2], acc[3] - comp[3],
+        acc[4], torch.tensor(float(n_total), dtype=acc_dtype, device=acc[4].device))
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def accumulators_to_estimates(accs):
+    """Combine per-level accumulators into MLMC estimates (host, numpy).
+
+    :param accs: list of MomentAccumulators or SynthMomentResult (one per
+        level; tensors on any device or numpy arrays)
+    :return: dict with l_means [L, R], l_vars [L, R], mean [R], var [R],
+        cov [R, R] (telescoped fine-coarse), n_samples [L]
+    """
+    l_means, l_vars, ns, covs = [], [], [], []
+    for lvl, a in enumerate(accs):
+        s = _np(a.sums).astype(np.float64)
+        s2 = _np(a.sums2).astype(np.float64)
+        n = float(_np(a.n_valid))
+        ns.append(n)
+        # degenerate counts: n == 0 -> zero mean / infinite variance,
+        # n == 1 -> infinite variance
+        safe_n = max(n, 1.0)
+        mean = s / safe_n
+        var = ((s2 - s * s / safe_n) / (n - 1) if n > 1
+               else np.full_like(s, np.inf))
+        if n == 0:
+            mean = np.zeros_like(s)
+        l_means.append(mean)
+        l_vars.append(var)
+        cf = _np(a.cov_fine).astype(np.float64) / safe_n
+        cc = _np(a.cov_coarse).astype(np.float64) / safe_n
+        covs.append(cf - cc if lvl > 0 else cf)
+    l_means = np.stack(l_means)
+    l_vars = np.stack(l_vars)
+    ns = np.asarray(ns)
+    return dict(
+        l_means=l_means,
+        l_vars=l_vars,
+        mean=l_means.sum(axis=0),
+        var=(l_vars / np.maximum(ns, 1.0)[:, None]).sum(axis=0),
+        cov=np.sum(covs, axis=0),
+        n_samples=ns,
+    )
+
+
+def fused_mlmc_moments(sim_chunk_fns, moments_fn, seed, n_samples_per_level,
+                       chunk_size=1 << 16, acc_dtype=torch.float64,
+                       device=None):
+    """All levels of the fused pipeline; level l draws from
+    ``level_generator(seed, l)``.
+
+    :param sim_chunk_fns: per-level ``f(generator, n, device) -> (fine,
+        coarse, failed)``
+    :return: list of MomentAccumulators, one per level
+    """
+    accs = []
+    for lvl, (fn, n) in enumerate(zip(sim_chunk_fns, n_samples_per_level)):
+        accs.append(fused_level_moments(
+            fn, moments_fn, level_generator(seed, lvl, device), int(n),
+            min(chunk_size, max(int(n), 1)), is_level0=(lvl == 0),
+            acc_dtype=acc_dtype, device=device))
+    return accs

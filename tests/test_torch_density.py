@@ -1,0 +1,127 @@
+"""Maxent density reconstruction: mlmc_tpu_torch against mlmc_tpu.
+
+Both sides start from the same covariance and moment means (numpy, f64).
+The orthogonalization is host numpy on both sides (tolerance 1e-10); the
+Newton solve runs in f64 torch here and in f64 JAX (``solver_backend=
+"jax"``) there, so multipliers and density agree to rtol 1e-8.
+"""
+import numpy as np
+import pytest
+import scipy.stats as st
+import torch
+
+import mlmc_tpu.moments as jm
+import mlmc_tpu.tool.simple_distribution as jsd
+
+import mlmc_tpu_torch.moments as tm
+import mlmc_tpu_torch.tool.simple_distribution as tsd
+
+torch.set_num_threads(1)
+
+DOMAIN = (-4.0, 4.0)
+
+
+def _cov_and_mean(R, seed=0, n=200_000):
+    """Sampled covariance and means of a Legendre basis under a skewed
+    two-component density."""
+    rng = np.random.default_rng(seed)
+    x = np.where(rng.uniform(size=n) < 0.7, rng.normal(-0.5, 0.8, n),
+                 rng.normal(1.5, 0.6, n))
+    x = x[(x > DOMAIN[0]) & (x < DOMAIN[1])]
+    phi = np.asarray(jm.Legendre(R, DOMAIN).eval_all_np(x))
+    return phi.T @ phi / len(x), phi.mean(axis=0)
+
+
+@pytest.mark.parametrize("tol", [1e-7, None])
+def test_construct_ortogonal_moments_matches_jax(tol):
+    cov, _ = _cov_and_mean(10)
+    j_orto, (j_ev, j_cut, j_L) = jsd.construct_ortogonal_moments(
+        jm.Legendre(10, DOMAIN), cov, tol=tol)
+    t_orto, (t_ev, t_cut, t_L) = tsd.construct_ortogonal_moments(
+        tm.Legendre(10, DOMAIN), cov, tol=tol)
+    assert t_cut == j_cut and t_orto.size == j_orto.size
+    np.testing.assert_allclose(t_ev, j_ev, rtol=1e-10, atol=1e-14)
+    np.testing.assert_allclose(t_L, j_L, rtol=1e-10, atol=1e-12)
+    x = np.linspace(-3.9, 3.9, 50)
+    np.testing.assert_allclose(t_orto.eval_all_np(x), j_orto.eval_all_np(x),
+                               rtol=1e-10, atol=1e-10)
+    assert isinstance(t_orto, tm.TransformedMoments)
+
+
+def _solve(pkg_sd, pkg_m, backend, R=8):
+    cov, mean = _cov_and_mean(R, seed=1)
+    orto, info = pkg_sd.construct_ortogonal_moments(pkg_m.Legendre(R, DOMAIN),
+                                                    cov, tol=1e-7)
+    mu = info[2] @ mean
+    data = np.stack((mu, np.ones(orto.size)), axis=1)
+    d = pkg_sd.SimpleDistribution(orto, data, domain=DOMAIN,
+                                  solver_backend=backend)
+    return d, d.estimate_density_minimize(tol=1e-9)
+
+
+def test_simple_distribution_matches_jax_solver():
+    jd, jres = _solve(jsd, jm, "jax")
+    td, tres = _solve(tsd, tm, "torch")
+    assert jres.success and tres.success
+    np.testing.assert_allclose(td.multipliers, jd.multipliers, rtol=1e-8,
+                               atol=1e-10)
+    x = np.linspace(-3.95, 3.95, 200)
+    np.testing.assert_allclose(td.density(x), jd.density(x), rtol=1e-8)
+    np.testing.assert_allclose(td.cdf(x), jd.cdf(x), rtol=1e-8, atol=1e-12)
+
+
+def test_torch_and_numpy_backends_agree():
+    nd, nres = _solve(tsd, tm, "numpy")
+    td, tres = _solve(tsd, tm, "torch")
+    assert nres.success and tres.success
+    np.testing.assert_allclose(td.multipliers, nd.multipliers, rtol=1e-8,
+                               atol=1e-10)
+
+
+def test_newton_solve_matches_numpy_mirror():
+    rng = np.random.default_rng(4)
+    pts, wts = tsd.panels_to_quadrature(np.linspace(-1.0, 1.0, 9))
+    q = np.polynomial.legendre.legvander(pts, 5)
+    target = rng.normal(0.0, 0.3, size=6)
+    mu = q.T @ (np.exp(-(q @ target)) * wts)
+    lam0 = np.zeros(6)
+    got = tsd._newton_solve(q, wts, mu, lam0, 1e-12)
+    want = tsd._newton_solve_np(q, wts, mu, lam0, 1e-12)
+    assert got[1] <= 1e-12 and want[1] <= 1e-12
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-9, atol=1e-11)
+    np.testing.assert_allclose(got[0], target, rtol=1e-7, atol=1e-9)
+
+
+def test_adaptive_panels_match_jax():
+    f = lambda x: np.exp(-x * x) * np.abs(np.cos(3 * x))
+    jb, ji = jsd.adaptive_panels(f, -4.0, 4.0, tol=1e-11)
+    tb, ti = tsd.adaptive_panels(f, -4.0, 4.0, tol=1e-11)
+    np.testing.assert_array_equal(tb, jb)
+    assert ti == ji
+
+
+def test_kl_and_l2_match_jax():
+    p = st.norm(0, 1).pdf
+    q = st.norm(0.2, 1.1).pdf
+    assert tsd.KL_divergence(p, q, -5, 5) == pytest.approx(
+        jsd.KL_divergence(p, q, -5, 5), rel=1e-12)
+    assert tsd.L2_distance(p, q, -5, 5) == pytest.approx(
+        jsd.L2_distance(p, q, -5, 5), rel=1e-12)
+
+
+def test_detect_threshold_matches_jax():
+    spectrum = np.sort(np.concatenate([np.logspace(-14, -11, 4),
+                                       np.logspace(-6, 0, 8)]))
+    t_cut, t_rep = tsd.detect_treshold_slope_change(spectrum)
+    j_cut, j_rep = jsd.detect_treshold_slope_change(spectrum)
+    assert t_cut == j_cut
+    np.testing.assert_allclose(t_rep, j_rep, rtol=1e-12)
+
+
+def test_lsq_reconstruct_matches_jax():
+    cov, _ = _cov_and_mean(4, seed=2)
+    vals, vecs = np.linalg.eigh(cov)
+    got = tsd.lsq_reconstruct(cov, vals, vecs, 2)
+    want = jsd.lsq_reconstruct(cov, vals, vecs, 2)
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12)
+    np.testing.assert_array_equal(got[:, :2], vecs[:, :2])

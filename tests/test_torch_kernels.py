@@ -1,0 +1,272 @@
+"""mlmc_tpu_torch.ops.cuda_kernels: plain versions against mlmc_tpu, and
+(on a machine with a GPU) the CUDA kernels against the plain versions.
+
+mlmc_tpu is imported inside the tests that compare with it, so the
+``cuda`` tests also run on a GPU machine without JAX:
+``python -m pytest --noconftest tests/test_torch_kernels.py -m cuda``.
+
+Memory mode is held to two references on identical f32 normals made with
+numpy:
+* mlmc_tpu's Pallas noise kernel in interpret mode (f32 sums with Kahan):
+  n_valid exact, everything else within the derived f32 accumulation
+  bound ``accumulation_error_bound(S_abs)`` (mlmc_tpu/ops/precision.py);
+* mlmc_tpu's exact f64 summation ``f64_reference_moments`` of the same
+  f32 per-sample values: within 1e-12 * S_abs (the port computes the same
+  f32 per-sample values and sums them in f64, in another order).
+"""
+import numpy as np
+import pytest
+import scipy.stats as st
+import torch
+
+from mlmc_tpu_torch.ops import cuda_kernels as ck
+from mlmc_tpu_torch.ops import precision as port_precision
+
+torch.set_num_threads(1)
+
+DOMAIN = (-4.0, 4.0)
+STEPS = [0.5, 0.25, 0.125, 0.0625, 0.03125]
+FIELDS = [("sums", "abs_sums"), ("sums2", "abs_sums2"),
+          ("cov_fine", "abs_cov_fine"), ("cov_coarse", "abs_cov_coarse")]
+
+
+def _level_noise(n=8192, seed=0):
+    """Per-level normals with a few values far outside the domain."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in STEPS:
+        x = np.concatenate([rng.normal(size=n - 32),
+                            rng.uniform(3.5, 7.0, size=16),
+                            -rng.uniform(3.5, 7.0, size=16)])
+        rng.shuffle(x)
+        out.append(x.astype(np.float32))
+    return out
+
+
+def _jax_precision():
+    from mlmc_tpu.ops import precision
+    return precision
+
+
+def _f64_ref(x, level, n_moments, precision=None):
+    """Exact f64 summation of the kernel body's f32 per-sample values
+    (mlmc_tpu's reference unless another module is given)."""
+    precision = precision or _jax_precision()
+    return precision.f64_reference_moments(
+        x, n_moments, fine_step=STEPS[level],
+        coarse_step=STEPS[level - 1] if level else 0.0, domain=DOMAIN,
+        is_level0=(level == 0))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+# --------------------------------------------------------------------- #
+# memory mode (plain version) vs mlmc_tpu
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("level", [1, 2, 3, 4])
+def test_memory_mode_vs_pallas_interpret(level):
+    from mlmc_tpu.ops.pallas_kernels import synth_moment_pipeline_from_noise as jax_from_noise
+
+    bound = _jax_precision().accumulation_error_bound
+    xs = _level_noise()
+    res = ck.synth_mlmc_pipeline_from_noise(xs, 8, STEPS, domain=DOMAIN)[level]
+    want = jax_from_noise(xs[level], 8, fine_step=STEPS[level],
+                          coarse_step=STEPS[level - 1], domain=DOMAIN,
+                          chunk=8192, interpret=True)
+    ref = _f64_ref(xs[level], level, 8)
+    assert int(res.n_valid) == int(want.n_valid) == ref["n_valid"]
+    for name, abs_name in FIELDS:
+        err = np.abs(getattr(res, name).numpy() - np.asarray(getattr(want, name)))
+        assert np.all(err <= bound(ref[abs_name]) + 1e-12), name
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, 3, 4])
+def test_memory_mode_vs_f64_reference(level):
+    xs = _level_noise(n=1 << 14, seed=1)
+    res = ck.synth_mlmc_pipeline_from_noise(xs, 25, STEPS, domain=DOMAIN)[level]
+    ref = _f64_ref(xs[level], level, 25)
+    assert int(res.n_valid) == ref["n_valid"]
+    assert res.sums.dtype == torch.float64 and res.n_valid.dtype == torch.int64
+    for name, abs_name in FIELDS:
+        err = np.abs(getattr(res, name).numpy() - ref[name])
+        assert np.all(err <= 1e-12 * np.maximum(ref[abs_name], 1.0)), name
+    if level == 0:
+        assert not torch.any(res.cov_coarse != 0)
+
+
+@pytest.mark.parametrize("level", [0, 2])
+def test_plain_absolute_sums_match_f64_reference(level):
+    """``absolute=True`` gives the S_abs of ``f64_reference_moments``."""
+    xs = [torch.from_numpy(x) for x in _level_noise(n=4096, seed=5)]
+    res = ck.synth_mlmc_plain(xs, 0, [x.numel() for x in xs], *ck._ladder(STEPS),
+                              13, domain=DOMAIN, device="cpu", absolute=True)
+    ref = _f64_ref(xs[level].numpy(), level, 13)
+    assert int(res.n_valid[level]) == ref["n_valid"]
+    for name, abs_name in FIELDS:
+        np.testing.assert_allclose(getattr(res, name)[level].numpy(), ref[abs_name],
+                                   rtol=1e-12, atol=1e-12, err_msg=name)
+
+
+def test_single_level_entry_points_match_multi_level():
+    """synth_moment_pipeline(_from_noise) are L=1 calls of the same body."""
+    x = _level_noise(seed=2)[2]
+    multi = ck.synth_mlmc_pipeline_from_noise(
+        [x[:0], x[:0], x], 25, STEPS[:3], domain=DOMAIN)[2]
+    single = ck.synth_moment_pipeline_from_noise(
+        x, 25, fine_step=STEPS[2], coarse_step=STEPS[1], domain=DOMAIN)
+    for a, b in zip(multi, single):
+        assert torch.equal(a, b)
+    lvl0 = ck.synth_moment_pipeline_from_noise(
+        x, 9, fine_step=0.5, coarse_step=0.0, domain=DOMAIN, is_level0=True)
+    ref = _jax_precision().f64_reference_moments(
+        x, 9, fine_step=0.5, coarse_step=0.0, domain=DOMAIN, is_level0=True)
+    assert int(lvl0.n_valid) == ref["n_valid"]
+    np.testing.assert_allclose(lvl0.sums.numpy(), ref["sums"], rtol=1e-12)
+
+
+def test_rng_mode_draws_the_philox_stream():
+    """RNG mode == memory mode fed with philox_normals of each level."""
+    n_per_level = [5000, 3000, 1000, 0, 17]
+    res = ck.synth_mlmc_pipeline(11, 7, n_per_level, STEPS, domain=DOMAIN)
+    xs = [ck.philox_normals(11, lvl, 0, n) for lvl, n in enumerate(n_per_level)]
+    mem = ck.synth_mlmc_pipeline_from_noise(xs, 7, STEPS, domain=DOMAIN)
+    for a, b in zip(res, mem):
+        for fa, fb in zip(a, b):
+            assert torch.equal(fa, fb)
+    single = ck.synth_moment_pipeline(11, 7, 5000, fine_step=0.5,
+                                      coarse_step=0.0, domain=DOMAIN,
+                                      is_level0=True)
+    for fa, fb in zip(single, res[0]):
+        assert torch.equal(fa, fb)
+    assert float(res[0].sums[0]) == float(res[0].n_valid)
+
+
+@pytest.mark.parametrize("level", [0, 3])
+def test_port_precision_reference_matches_jax(level):
+    """The port's copy of the f64 reference and bound equals mlmc_tpu's."""
+    x = _level_noise(n=4096, seed=4)[level]
+    want = _f64_ref(x, level, 11)
+    got = _f64_ref(x, level, 11, precision=port_precision)
+    assert got.keys() == want.keys()
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key])
+    assert port_precision.accumulation_error_bound(2.0) == \
+        _jax_precision().accumulation_error_bound(2.0)
+
+
+def test_zero_sample_level_returns_zeros():
+    res = ck.synth_mlmc_pipeline(3, 6, [100, 0, 50], STEPS[:3], domain=DOMAIN)
+    assert int(res[1].n_valid) == 0
+    for field in res[1]:
+        assert not torch.any(field != 0)
+    mem = ck.synth_mlmc_pipeline_from_noise(
+        [np.zeros(4, np.float32), np.zeros(0, np.float32)], 6, STEPS[:2],
+        domain=DOMAIN)
+    assert int(mem[1].n_valid) == 0 and not torch.any(mem[1].cov_fine != 0)
+
+
+def test_mismatched_lengths_raise():
+    with pytest.raises(ValueError):
+        ck.synth_mlmc_pipeline(0, 5, (100, 100), (0.5, 0.25, 0.125),
+                               domain=DOMAIN)
+    with pytest.raises(ValueError):
+        ck.synth_mlmc_pipeline_from_noise([np.zeros(8, np.float32)], 5,
+                                          (0.5, 0.25), domain=DOMAIN)
+    with pytest.raises(ValueError):
+        ck.synth_mlmc_pipeline(0, ck.R_PAD + 1, (10,), (0.5,), domain=DOMAIN)
+
+
+# --------------------------------------------------------------------- #
+# Philox4x32-10 and Box-Muller
+# --------------------------------------------------------------------- #
+M32 = 0xFFFFFFFF
+
+
+@pytest.mark.parametrize("counter,key,want", [
+    # Random123 known-answer vectors for philox4x32-10
+    ((0, 0, 0, 0), (0, 0), (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+    ((M32, M32, M32, M32), (M32, M32),
+     (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+    ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344), (0xa4093822, 0x299f31d0),
+     (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1)),
+])
+def test_philox_known_answers(counter, key, want):
+    out = ck.philox4x32_10([torch.tensor([c], dtype=torch.int64) for c in counter], key)
+    assert tuple(int(o[0]) for o in out) == want
+
+
+def test_box_muller_bit_map_matches_normal_pair():
+    """Top 24 bits -> (0, 1) uniforms, u1 offset by half an ulp, as
+    mlmc_tpu's _normal_pair; cosine branch of Box-Muller in f32."""
+    rng = np.random.default_rng(5)
+    b0 = rng.integers(0, 1 << 32, size=4096, dtype=np.uint64)
+    b1 = rng.integers(0, 1 << 32, size=4096, dtype=np.uint64)
+    b0[:3] = [0, M32, 255]  # extremes: smallest and largest u1
+    z = ck.box_muller(torch.from_numpy(b0.astype(np.int64)),
+                      torch.from_numpy(b1.astype(np.int64))).numpy()
+    i1 = (b0 >> 8).astype(np.int32).astype(np.float32)
+    i2 = (b1 >> 8).astype(np.int32).astype(np.float32)
+    u1 = i1 * np.float32(1.0 / (1 << 24)) + np.float32(0.5 / (1 << 24))
+    u2 = i2 * np.float32(1.0 / (1 << 24))
+    want = (np.sqrt(-2.0 * np.log(u1.astype(np.float64)))
+            * np.cos(np.float32(2 * np.pi) * u2.astype(np.float64)))
+    assert np.all(np.isfinite(z)) and z.dtype == np.float32
+    np.testing.assert_allclose(z, want, rtol=0, atol=4e-6)
+
+
+def test_synth_normals_index_mapping_and_statistics():
+    z = ck.synth_normals(9, 1 << 16, level=3)
+    part = ck.synth_normals(9, 100, level=3, start=1000)
+    assert torch.equal(z[1000:1100], part)
+    assert not torch.equal(ck.synth_normals(9, 100, level=2), z[:100])
+    assert not torch.equal(ck.synth_normals(10, 100, level=3), z[:100])
+    z = z.numpy().astype(np.float64)
+    assert abs(z.mean()) < 5 / np.sqrt(z.size)
+    assert abs(z.var() - 1) < 5 * np.sqrt(2 / z.size)
+    assert st.kstest(z, "norm").pvalue > 1e-3
+
+
+# --------------------------------------------------------------------- #
+# CUDA kernels vs their plain versions (run on a machine with a GPU)
+# --------------------------------------------------------------------- #
+@pytest.mark.cuda
+def test_cuda_memory_mode_vs_plain(cuda_device):
+    xs = [torch.from_numpy(x).to(cuda_device) for x in _level_noise(n=1 << 17)]
+    before = ck.synth_mlmc_cuda.launches
+    got = ck.synth_mlmc_pipeline_from_noise(xs, 25, STEPS, domain=DOMAIN)
+    assert ck.synth_mlmc_cuda.launches == before + 1
+    plain = ck.synth_mlmc_plain(xs, 0, [x.numel() for x in xs], *ck._ladder(STEPS),
+                                25, domain=DOMAIN, device=cuda_device)
+    for lvl, g in enumerate(got):
+        ref = _f64_ref(xs[lvl].cpu().numpy(), lvl, 25, precision=port_precision)
+        assert int(g.n_valid) == int(plain.n_valid[lvl]) == ref["n_valid"]
+        for name, abs_name in FIELDS:
+            err = (getattr(g, name) - getattr(plain, name)[lvl]).abs().cpu().numpy()
+            assert np.all(err <= 1e-12 * np.maximum(ref[abs_name], 1.0)), name
+
+
+@pytest.mark.cuda
+def test_cuda_normals_vs_plain(cuda_device):
+    z = ck.synth_normals(4, 1 << 20, level=2, start=77, device=cuda_device)
+    zp = ck.philox_normals(4, 2, 77, 1 << 20, device=cuda_device)
+    assert float((z - zp).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_rng_mode_vs_plain(cuda_device):
+    n = [1 << 18, 100_003, 0, 7, 1000]
+    got = ck.synth_mlmc_pipeline(5, 25, n, STEPS, domain=DOMAIN, device=cuda_device)
+    plain, s_abs = (ck.synth_mlmc_plain(None, 5, n, *ck._ladder(STEPS), 25,
+                                        domain=DOMAIN, device=cuda_device,
+                                        absolute=a) for a in (False, True))
+    for lvl, g in enumerate(got):
+        assert int(g.n_valid) == int(plain.n_valid[lvl])
+        for name, _ in FIELDS:
+            err = (getattr(g, name) - getattr(plain, name)[lvl]).abs()
+            scale = getattr(s_abs, name)[lvl].clamp(min=1.0)
+            assert bool(torch.all(err <= 1e-12 * scale)), name
