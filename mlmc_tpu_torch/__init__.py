@@ -1,5 +1,8 @@
-"""mlmc_tpu_torch — the storage-free MLMC path of ``mlmc_tpu`` in PyTorch,
-with its fused sample -> moment kernels written in CUDA for Hopper.
+"""mlmc_tpu_torch — ``mlmc_tpu``'s MLMC paths in PyTorch, with their
+sample -> moment kernels written in CUDA for Hopper: the storage-free path
+(``FusedMLMC``, ``synth_mlmc_pipeline``) and the stored-samples path
+(``Sampler`` -> ``DeviceBatchPool`` -> ``DeviceMemory`` -> ``Quantity`` ->
+``Estimate``).
 
 Module paths and public names mirror ``mlmc_tpu``: the counterpart of
 ``mlmc_tpu/X.py`` is ``mlmc_tpu_torch/X.py``. Importing the package has no
@@ -17,12 +20,27 @@ from mlmc_tpu_torch.ops.fused_estimate import (
     fused_mlmc_moments)
 from mlmc_tpu_torch.ops.cuda_kernels import (
     SynthMomentResult, synth_mlmc_pipeline, synth_mlmc_pipeline_from_noise,
-    synth_moment_pipeline, synth_moment_pipeline_from_noise, synth_normals)
+    synth_moment_pipeline, synth_moment_pipeline_from_noise, synth_normals,
+    moment_pipeline_from_samples, mlmc_moment_pipeline_from_samples,
+    pack_level_samples)
+from mlmc_tpu_torch.ops.cuda_extended import (
+    ExtendedMomentResult, moment_pipeline_from_samples_extended,
+    synth_moment_pipeline_from_noise_extended)
 from mlmc_tpu_torch.estimator import (
-    estimate_n_samples_for_target_variance, calc_level_params,
-    determine_level_parameters, determine_n_samples)
+    Estimate, estimate_domain, estimate_n_samples_for_target_variance,
+    calc_level_params, determine_level_parameters, determine_n_samples)
 from mlmc_tpu_torch.fused_driver import (
     FusedMLMC, level_sim_chunk_fn, sim_level_chunk_fns)
 from mlmc_tpu_torch.tool.simple_distribution import (
     SimpleDistribution, construct_ortogonal_moments)
-from mlmc_tpu_torch.convert import accumulators_from_jax, moments_from_jax
+from mlmc_tpu_torch.sample_storage import SampleStorage, Memory, DeviceMemory
+from mlmc_tpu_torch.sampling_pool import (
+    SamplingPool, OneProcessPool, DeviceBatchPool)
+from mlmc_tpu_torch.sampler import Sampler
+from mlmc_tpu_torch.quantity.quantity import (
+    Quantity, QuantityConst, QuantityMean, QuantityStorage, make_root_quantity)
+from mlmc_tpu_torch.quantity.quantity_spec import ChunkSpec
+from mlmc_tpu_torch.quantity.quantity_types import (
+    QType, ScalarType, BoolType, ArrayType, TimeSeriesType, FieldType, DictType)
+from mlmc_tpu_torch.convert import (
+    accumulators_from_jax, moments_from_jax, storage_from_jax)

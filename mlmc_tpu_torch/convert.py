@@ -1,24 +1,33 @@
 """Carry state from ``mlmc_tpu`` into this package.
 
 The state of a storage-free MLMC run is its per-level accumulators and its
-moment basis. These helpers rebuild both from ``mlmc_tpu`` objects by
-reading their fields and attributes, without importing ``jax`` or
-``mlmc_tpu``: accumulator fields may be numpy arrays or anything
-``numpy.asarray`` accepts. A checkpoint written by
-``mlmc_tpu.FusedMLMC.save_state`` loads with ``FusedMLMC.load_state``.
+moment basis; the state of a stored-sample run is its sample storage.
+These helpers rebuild them from ``mlmc_tpu`` objects by reading their
+fields and public methods, without importing ``jax`` or ``mlmc_tpu``:
+arrays may be numpy arrays or anything ``numpy.asarray`` accepts. A
+checkpoint written by ``mlmc_tpu.FusedMLMC.save_state`` loads with
+``FusedMLMC.load_state``.
 """
 import numpy as np
 import torch
 
 from mlmc_tpu_torch import moments as _moments
+from mlmc_tpu_torch.device import resolve_device
 from mlmc_tpu_torch.ops.cuda_kernels import SynthMomentResult
 from mlmc_tpu_torch.ops.fused_estimate import MomentAccumulators
+from mlmc_tpu_torch.quantity.quantity_spec import QuantitySpec
+from mlmc_tpu_torch.sample_storage import Memory
+from mlmc_tpu_torch.tags import TagRange
 
 
 def accumulators_from_jax(obj, device=None):
     """An ``mlmc_tpu`` ``MomentAccumulators`` or ``SynthMomentResult`` as
     this package's tensors: float64 sums, and for a SynthMomentResult an
-    int64 valid count (the Pallas kernels accumulate in f32)."""
+    int64 valid count (the Pallas kernels accumulate in f32).
+
+    :param device: None = the current CUDA device
+    """
+    device = resolve_device(device)
     fields = obj._fields
     if fields == MomentAccumulators._fields:
         return MomentAccumulators(*(
@@ -47,3 +56,36 @@ def moments_from_jax(m):
         raise TypeError("no counterpart for moment basis %s" % name)
     return cls(m.size, m.domain, ref_domain=tuple(m.ref_domain),
                log=m._is_log, safe_eval=m._is_clip)
+
+
+def storage_from_jax(memory, storage=None):
+    """Copy an ``mlmc_tpu`` ``Memory``/``DeviceMemory`` into a storage of
+    this package, so that both packages estimate identical samples.
+
+    Carried over: the result format, the level parameters, every level's
+    stored (fine, coarse) samples, the scheduled counts and the per-sample
+    costs (n_ops). Sample ids are renumbered 0..n-1 per level.
+
+    :param storage: the ``Memory`` or ``DeviceMemory`` to fill; default a
+        new host ``Memory``
+    :return: the filled storage
+    """
+    storage = Memory() if storage is None else storage
+    result_format = [QuantitySpec(name=q.name, unit=q.unit, shape=tuple(q.shape),
+                                  times=list(q.times), locations=list(q.locations))
+                     for q in memory.load_result_format()]
+    storage.save_global_data(result_format=result_format,
+                             level_parameters=memory.get_level_parameters())
+    for lid, tags in memory.load_scheduled_samples().items():
+        storage.save_scheduled_samples(int(lid), TagRange(int(lid), 0, len(tags)))
+    for lid, pairs in enumerate(memory.sample_pairs()):
+        if pairs is None:
+            continue
+        pairs = np.asarray(pairs)                     # [M, N, 1|2]
+        fine = pairs[:, :, 0].T
+        coarse = pairs[:, :, 1].T if pairs.shape[2] > 1 else np.zeros_like(fine)
+        storage.save_samples_bulk(lid, TagRange(lid, 0, fine.shape[0]),
+                                  fine, coarse)
+    storage.save_n_ops([(lid, [float(c), 1.0])
+                        for lid, c in enumerate(memory.get_n_ops())])
+    return storage

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from mlmc_tpu_torch import estimator as est_mod
+from mlmc_tpu_torch.device import resolve_device
 from mlmc_tpu_torch.ops.fused_estimate import (
     MomentAccumulators, accumulators_to_estimates, fused_level_moments,
     level_generator)
@@ -61,7 +62,8 @@ class FusedMLMC:
     :param seed: level l draws from ``level_generator(seed, l, device)``
     :param chunk_size: samples per loop step
     :param acc_dtype: accumulator dtype
-    :param device: where samples are drawn and reduced
+    :param device: where samples are drawn and reduced; None = the
+        current CUDA device
     """
 
     def __init__(self, sim_chunk_fns, moments_fn, seed=0, chunk_size=1 << 16,
@@ -71,7 +73,7 @@ class FusedMLMC:
         self._seed = int(seed)
         self._chunk = int(chunk_size)
         self._acc_dtype = acc_dtype
-        self._device = torch.device("cpu" if device is None else device)
+        self._device = resolve_device(device)
         self.n_levels = len(self._fns)
         self._generators = [level_generator(self._seed, lvl, self._device)
                             for lvl in range(self.n_levels)]

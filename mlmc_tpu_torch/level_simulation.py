@@ -35,6 +35,10 @@ class LevelSimulation:
     calculate_batch: Any = None
     # batched calculate_batch(config, generator, n, device) -> (fine[n,M], coarse[n,M], failed[n])
 
+    calculate_keyed_batch: Any = None
+    # calculate_keyed_batch(config, seed, level_id, indices, attempts)
+    # -> (fine[B,M], coarse[B,M], failed[B]); the DeviceBatchPool's path
+
     level_id: Optional[int] = None
 
     result_format: Any = None

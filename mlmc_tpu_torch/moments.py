@@ -123,6 +123,10 @@ class Moments:
         """Value of the i-th moment function."""
         return self._eval_all(value, i + 1)[..., -1]
 
+    def eval_single_moment(self, i, value):
+        """i-th moment values, broadcasting over ``value``'s shape."""
+        return self._eval_all(value, i + 1)[..., i]
+
     def eval_all(self, value, size=None):
         """Vandermonde of the first ``size`` moment functions:
         ``[*value.shape, size]`` on the value's device and dtype."""
@@ -262,8 +266,8 @@ class TransformedMoments(Moments):
 
     def _eval_all(self, value, size):
         orig = self._origin._eval_all(value, self._origin.size)
-        mat = torch.as_tensor(self._transform_mat.T, dtype=orig.dtype,
-                              device=orig.device)
+        mat = torch.as_tensor(np.ascontiguousarray(self._transform_mat.T),
+                              dtype=orig.dtype, device=orig.device)
         return (orig @ mat)[..., :size]
 
     def eval_all_np(self, value, size=None):

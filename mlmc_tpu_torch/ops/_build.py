@@ -1,10 +1,11 @@
 """Build and bind the CUDA kernels of ``mlmc_tpu_torch/csrc``.
 
-The sources compile with ``nvcc`` into a shared library with a plain C
-interface, loaded through ctypes. The library is built at first use into
-``mlmc_tpu_torch/_build/`` (ignored by git), named by a hash of the source
-and the flags, so an edited source rebuilds and an unchanged one is reused.
-Nothing here runs at import time.
+Each source ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
+library with a plain C interface, loaded through ctypes. A library is built
+at first use into ``mlmc_tpu_torch/_build/`` (ignored by git), named by a
+hash of the source and the flags, so an edited source rebuilds and an
+unchanged one is reused. ``build_all`` starts one ``nvcc`` per source, all
+at once, and waits for them. Nothing here runs at import time.
 """
 import ctypes
 import functools
@@ -16,12 +17,39 @@ import tempfile
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCE = PACKAGE_DIR / "csrc" / "synth_mlmc.cu"
+SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
+# no fast math: --fmad=false keeps a*b+c as two roundings, and division and
+# square root stay correctly rounded, so per-sample values match the plain
+# versions (and numpy) bit for bit
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "--fmad=false", "--prec-div=true", "--prec-sqrt=true",
+              "-shared", "-Xcompiler", "-fPIC")
 
 _p = ctypes.c_void_p
+_i = ctypes.c_int
+_f = ctypes.c_float
+_d = ctypes.c_double
+_u32 = ctypes.c_uint32
+_ll = ctypes.c_longlong
+
+#: C entry points of each source: name -> argtypes (every one returns int,
+#: the CUDA error code of its launches)
+SIGNATURES = {
+    "synth_mlmc": {
+        "synth_mlmc_launch": [_p, _p, _i, _p, _p, _i, _p, _i, _i, _f, _f,
+                              _u32, _u32, _p, _p, _p, _p, _p, _p, _p, _p],
+        "normals_dump_launch": [_p, _ll, _ll, _u32, _u32, _u32, _p],
+    },
+    "samples_mlmc": {
+        "samples_mlmc_launch": [_p, _p, _p, _i, _p, _p, _i, _p, _i, _i, _i,
+                                _d, _d, _d, _d, _d, _p, _p, _p, _p, _p, _p,
+                                _p, _p],
+        "samples_ext_launch": [_p, _p, _p, _i, _p, _p, _i, _p, _i, _i, _i,
+                               _d, _d, _d, _d, _d, _p, _p, _p, _p, _p, _p,
+                               _p, _p],
+    },
+}
 
 
 def find_nvcc():
@@ -39,42 +67,63 @@ def find_nvcc():
     return found
 
 
-def build_library():
-    """Compile ``csrc/synth_mlmc.cu`` unless a library for this source and
-    these flags exists; return its path."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    target = BUILD_DIR / ("libsynth_mlmc_%s.so" % digest.hexdigest()[:16])
-    if target.exists():
-        return target
+def library_path(name):
+    """Where the library of ``csrc/<name>.cu`` is built for this source
+    and these flags."""
+    source = SOURCE_DIR / (name + ".cu")
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / ("lib%s_%s.so" % (name, digest.hexdigest()[:16]))
+
+
+def build_all(names=None):
+    """Compile every named source (default: every ``csrc/*.cu``) that has
+    no library yet, one ``nvcc`` per source, all started together; return
+    {name: library path}."""
+    if names is None:
+        names = sorted(path.stem for path in SOURCE_DIR.glob("*.cu"))
+    targets = {name: library_path(name) for name in names}
+    todo = [name for name in names if not targets[name].exists()]
+    if not todo:
+        return targets
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name and rename: a concurrent or interrupted
-    # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = find_nvcc()
+    procs = {}
     try:
-        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed (%d):\n%s%s" % (
-                proc.returncode, proc.stdout, proc.stderr))
-        os.replace(tmp, target)
+        for name in todo:
+            # build under a temporary name and rename: a concurrent or
+            # interrupted build never leaves a half-written library under
+            # the final name
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            procs[name] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE_DIR / (name + ".cu"))],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        errors = []
+        for name, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append("nvcc %s.cu failed (%d):\n%s"
+                              % (name, proc.returncode, out))
+            else:
+                os.replace(tmp, targets[name])
+        if errors:
+            raise RuntimeError("\n".join(errors))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return target
+        for tmp, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return targets
 
 
 @functools.lru_cache(maxsize=None)
-def load_library():
-    """Build (if needed) and load the kernel library; cached per process."""
-    lib = ctypes.CDLL(str(build_library()))
-    lib.synth_mlmc_launch.argtypes = [
-        _p, _p, ctypes.c_int, _p, _p, ctypes.c_int, _p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_uint32,
-        ctypes.c_uint32, _p, _p, _p, _p, _p, _p, _p, _p]
-    lib.synth_mlmc_launch.restype = ctypes.c_int
-    lib.normals_dump_launch.argtypes = [
-        _p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_uint32,
-        ctypes.c_uint32, ctypes.c_uint32, _p]
-    lib.normals_dump_launch.restype = ctypes.c_int
+def load_library(name):
+    """Build (if needed) and load the library of ``csrc/<name>.cu``;
+    cached per process."""
+    lib = ctypes.CDLL(str(build_all([name])[name]))
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
     return lib

@@ -1,11 +1,13 @@
-"""Fused synthetic-sample -> Legendre-moment pipeline on the GPU.
+"""Sample -> moment kernels on the GPU: synthetic samples (kernels A, B)
+and stored QoI samples (kernel C).
 
 Counterpart of ``mlmc_tpu/ops/pallas_kernels.py``. Each entry point takes
-the same arguments as its Pallas twin plus a ``device``. On a CUDA device
-it launches the hand-written kernels of ``csrc/synth_mlmc.cu``; on the CPU
-it runs the plain PyTorch version of the same computation. A CUDA call
-never falls back to the plain version: if the kernel cannot be built or
-launched, it raises.
+the same arguments as its Pallas twin plus a ``device`` (default: the
+current CUDA device, or the device of a tensor input). On a CUDA device it
+launches the hand-written kernels of ``csrc/synth_mlmc.cu`` and
+``csrc/samples_mlmc.cu``; on the CPU it runs the plain PyTorch version of
+the same computation. A CUDA call never falls back to the plain version:
+if the kernel cannot be built or launched, it raises.
 
 Kernel A (``synth_mlmc_cuda``) computes, for every level at once,
 
@@ -20,6 +22,12 @@ f64. It either draws x ~ N(0, 1) in the kernel (RNG mode) or reads x from
 memory (memory mode). Kernel B (``normals_dump_cuda``) writes the normals
 that RNG mode draws, for statistical tests of the stream.
 
+Kernel C (``samples_mlmc_cuda``) computes the same five accumulators from
+stored fine/coarse QoI streams (``SampleStreams``): every (component,
+level) stream in one launch, with the transform t = (x - a)·scale + ref_lo
+and Legendre, monomial or Fourier rows in f32, as ``_samples_mlmc_kernel``
+does. Its f64 twin, kernel D, lives in ``ops/cuda_extended.py``.
+
 Random numbers: sample ``i`` of level ``l`` under ``seed`` is the normal
 from one Philox4x32-10 call with key (seed low word, seed high word) and
 counter (i low word, i high word, l, 0); words 0 and 1 feed Box-Muller with
@@ -33,6 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mlmc_tpu_torch.device import cuda_device, resolve_device
 from mlmc_tpu_torch.ops._build import load_library
 
 R_PAD = 32  # largest supported moment count (as in the Pallas kernels)
@@ -135,32 +144,66 @@ def _domain_map(domain):
     return _f32(2.0 / (b - a)), _f32((a + b) / 2.0)
 
 
-def _legendre_rows_f32(t, valid, n_moments):
-    """f32 three-term recurrence [n, R]; invalid samples give zero rows.
+def _basis_rows_plain(t, valid, n_moments, basis="legendre"):
+    """Rows of ``pallas_kernels._basis_rows`` [n, R] in t's dtype: the
+    Legendre three-term recurrence, monomial powers, or Fourier
+    [1, cos, sin, ...] by angle addition; invalid samples give zero rows.
 
     Division is by 0-d tensors on the same device: PyTorch's CUDA
     division by a host scalar multiplies by its reciprocal, which is not
-    the correctly rounded quotient the kernel computes."""
+    the correctly rounded quotient the kernels compute."""
     t = torch.where(valid, t, torch.zeros_like(t))
-    v = valid.to(torch.float32)
-    denoms = torch.arange(n_moments, dtype=torch.float32, device=t.device)
+    v = valid.to(t.dtype)
     rows = [v]
-    if n_moments > 1:
-        rows.append(t)
-    prev2, prev1 = v, t
-    for n in range(2, n_moments):
-        cur = ((2 * n - 1) * t * prev1 - (n - 1) * prev2) / denoms[n]
-        rows.append(cur)
-        prev2, prev1 = prev1, cur
+    if basis == "legendre":
+        denoms = torch.arange(n_moments, dtype=t.dtype, device=t.device)
+        if n_moments > 1:
+            rows.append(t)
+        prev2, prev1 = v, t
+        for n in range(2, n_moments):
+            cur = ((2 * n - 1) * t * prev1 - (n - 1) * prev2) / denoms[n]
+            rows.append(cur)
+            prev2, prev1 = prev1, cur
+    elif basis == "monomial":
+        power = v
+        for _ in range(1, n_moments):
+            power = power * t
+            rows.append(power)
+    else:
+        c1, s1 = torch.cos(t) * v, torch.sin(t) * v
+        ck, sk = c1, s1
+        for i in range(1, n_moments):
+            if i % 2 == 1:
+                rows.append(ck)
+            else:
+                rows.append(sk)
+                ck, sk = ck * c1 - sk * s1, sk * c1 + ck * s1
     return torch.stack(rows, dim=1)
+
+
+def _row_sums(pf, pc, absolute=False):
+    """(sum d, sum d^2, pf^T pf, pc^T pc) in f64 of [n, R] rows, with
+    d = pf - pc, or d = pf where there is no coarse part (pc None).
+
+    :param absolute: sum the absolute values of the terms instead (the
+        S_abs that scales the error bounds of ``ops/precision.py``)
+    """
+    pf = pf.to(torch.float64)
+    pc = None if pc is None else pc.to(torch.float64)
+    d = pf if pc is None else pf - pc
+    if absolute:
+        d, pf = d.abs(), pf.abs()
+        pc = None if pc is None else pc.abs()
+    cov_c = pc.T @ pc if pc is not None else torch.zeros(
+        pf.shape[1], pf.shape[1], dtype=torch.float64, device=pf.device)
+    return d.sum(0), (d * d).sum(0), pf.T @ pf, cov_c
 
 
 def level_moments_plain(x, n_moments, *, fine_step, coarse_step, has_coarse,
                         domain, absolute=False):
     """Plain version of kernel A's body for one block of samples ``x``.
 
-    :param absolute: sum the absolute values of the terms instead (the
-        S_abs that scales the error bounds of ``ops/precision.py``)
+    :param absolute: sum the absolute values of the terms instead (S_abs)
     :return: (sums, sums2, cov_f, cov_c) float64 and n_valid int64
     """
     t_scale, t_shift = _domain_map(domain)
@@ -173,20 +216,9 @@ def level_moments_plain(x, n_moments, *, fine_step, coarse_step, has_coarse,
     valid = (t_f >= -1.0) & (t_f <= 1.0)
     if has_coarse:
         valid = valid & (t_c >= -1.0) & (t_c <= 1.0)
-    pf = _legendre_rows_f32(t_f, valid, n_moments).to(torch.float64)
-    if has_coarse:
-        pc = _legendre_rows_f32(t_c, valid, n_moments).to(torch.float64)
-        d = pf - pc
-    else:
-        pc = None
-        d = pf
-    if absolute:
-        d, pf = d.abs(), pf.abs()
-        pc = None if pc is None else pc.abs()
-    cov_c = pc.T @ pc if pc is not None else torch.zeros(
-        n_moments, n_moments, dtype=torch.float64, device=x.device)
-    return (d.sum(0), (d * d).sum(0), pf.T @ pf, cov_c,
-            valid.sum().to(torch.int64))
+    pf = _basis_rows_plain(t_f, valid, n_moments)
+    pc = _basis_rows_plain(t_c, valid, n_moments) if has_coarse else None
+    return _row_sums(pf, pc, absolute) + (valid.sum().to(torch.int64),)
 
 
 def synth_mlmc_plain(x_levels, seed, n_per_level, fine_steps, coarse_steps,
@@ -239,19 +271,19 @@ def _slot_codes(n_moments):
     return np.asarray(codes, dtype=np.int32)
 
 
-def _block_tables(n_per_level, x_offsets):
+def _block_tables(n_per_level, x_offsets, span=SPAN):
     """Per-block (level, start, count, x offset) and per-level (first
     block, block count); a zero-sample level keeps one empty block, so
     its outputs are written as zeros."""
     blocks, lvl_blocks = [], []
     for lvl, n in enumerate(n_per_level):
         n = int(n)
-        n_blk = max(-(-n // SPAN), 1)
+        n_blk = max(-(-n // span), 1)
         lvl_blocks.append((len(blocks), n_blk))
         for b in range(n_blk):
-            start = b * SPAN
-            blocks.append((lvl, start, max(min(SPAN, n - start), 0),
-                           x_offsets[lvl] + start))
+            start = b * span
+            blocks.append((lvl, start, max(min(span, n - start), 0),
+                           int(x_offsets[lvl]) + start))
     return (np.asarray(blocks, dtype=np.int64),
             np.asarray(lvl_blocks, dtype=np.int64))
 
@@ -259,20 +291,6 @@ def _block_tables(n_per_level, x_offsets):
 def _check(code, what):
     if code != 0:
         raise RuntimeError("%s: CUDA error %d" % (what, code))
-
-
-def _cuda_device(device):
-    """``device`` as an indexed CUDA device; raises if it is not one or
-    CUDA is unavailable (a CUDA request never runs on the CPU)."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError("the CUDA kernels need a CUDA device, got %s" % device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("a CUDA device was requested but "
-                           "torch.cuda.is_available() is false")
-    if device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 def synth_mlmc_cuda(x, seed, n_per_level, fine_steps, coarse_steps,
@@ -283,8 +301,8 @@ def synth_mlmc_cuda(x, seed, n_per_level, fine_steps, coarse_steps,
         level (memory mode), or None (RNG mode)
     :return: stacked SynthMomentResult (float64, int64 counts)
     """
-    device = _cuda_device(device)
-    lib = load_library()
+    device = cuda_device(device)
+    lib = load_library("synth_mlmc")
     L, R = len(n_per_level), int(n_moments)
     if x is not None:
         if x.device != device or x.dtype != torch.float32 \
@@ -335,8 +353,8 @@ synth_mlmc_cuda.launches = 0
 
 def normals_dump_cuda(seed, n_samples, *, level=0, start=0, device):
     """Launch kernel B: the RNG-mode normals of ``level`` on ``device``."""
-    device = _cuda_device(device)
-    lib = load_library()
+    device = cuda_device(device)
+    lib = load_library("synth_mlmc")
     out = torch.empty(int(n_samples), dtype=torch.float32, device=device)
     k0, k1 = _key_words(seed)
     with torch.cuda.device(device):
@@ -351,29 +369,201 @@ def normals_dump_cuda(seed, n_samples, *, level=0, start=0, device):
 normals_dump_cuda.launches = 0
 
 
+# --------------------------------------------------------------------- #
+# stored samples: kernel C (f32 values, f64 sums) and its plain version
+# --------------------------------------------------------------------- #
+#: samples per thread block of kernels C and D
+SAMPLES_SPAN = 1 << 14
+#: basis codes of csrc/samples_mlmc.cu
+BASES = {"legendre": 0, "monomial": 1, "fourier": 2}
+
+
+class SampleStreams(NamedTuple):
+    """Stored QoI streams packed for kernels C and D: stream ``s`` holds
+    ``counts[s]`` samples at ``fine[offsets[s]:]`` and, where
+    ``has_coarse[s]``, at ``coarse[offsets[s]:]`` (f32, one device)."""
+
+    fine: torch.Tensor
+    coarse: torch.Tensor
+    offsets: tuple
+    counts: tuple
+    has_coarse: tuple
+
+
+def pack_streams(fine_streams, coarse_streams, has_coarse):
+    """Concatenate per-stream 1-D tensors (one device) into SampleStreams;
+    a stream without a coarse part (None) gets zeros in ``coarse``."""
+    counts = tuple(int(f.numel()) for f in fine_streams)
+    offsets = tuple(int(o) for o in np.concatenate([[0], np.cumsum(counts)])[:-1])
+    fine = torch.cat([f.reshape(-1).to(torch.float32) for f in fine_streams])
+    coarse = torch.cat([
+        torch.zeros_like(f, dtype=torch.float32).reshape(-1) if c is None
+        else c.reshape(-1).to(torch.float32)
+        for f, c in zip(fine_streams, coarse_streams)])
+    return SampleStreams(fine, coarse, offsets, counts,
+                         tuple(bool(h) for h in has_coarse))
+
+
+def transform_constants(domain, ref_domain=(-1.0, 1.0), *, f64=False,
+                        symmetric=False):
+    """(scale, shift, offset, lo, hi) of ``t = (x - shift) * scale + offset``
+    and the validity test ``lo <= t <= hi``.
+
+    f32 (kernel C): the constants of ``Moments.linear`` rounded to f32, as
+    the Pallas kernel and ``Estimate._harmonize_validity`` use them. f64
+    (kernel D): the f64 constants; ``symmetric`` shifts by the midpoint
+    (a + b) / 2 with offset 0, the transform of the strict f64 reference.
+    """
+    a, b = float(domain[0]), float(domain[1])
+    lo, hi = float(ref_domain[0]), float(ref_domain[1])
+    scale = (hi - lo) / (b - a)
+    shift, offset = ((a + b) / 2.0, 0.0) if symmetric else (a, lo)
+    consts = (scale, shift, offset, lo, hi)
+    return consts if f64 else tuple(_f32(c) for c in consts)
+
+
+def _check_basis(basis, n_moments):
+    if basis not in BASES:
+        raise ValueError("unknown basis %r" % (basis,))
+    if not 1 <= n_moments <= R_PAD:
+        raise ValueError("n_moments must be in [1, %d], got %d"
+                         % (R_PAD, n_moments))
+
+
+def samples_plain(streams, n_moments, *, basis, consts, f64=False,
+                  absolute=False):
+    """Plain version of kernels C (``f64=False``: transform and rows in
+    f32) and D (in f64); sums in f64.
+
+    :param consts: ``transform_constants`` of the call
+    :param absolute: return the sums of absolute terms (S_abs) instead
+    :return: stacked SynthMomentResult [S, ...] on the streams' device
+    """
+    dtype = torch.float64 if f64 else torch.float32
+    scale, shift, offset, lo, hi = consts
+    S, R = len(streams.counts), int(n_moments)
+    device = streams.fine.device
+    f64_kw = dict(dtype=torch.float64, device=device)
+    out = SynthMomentResult(
+        torch.zeros(S, R, **f64_kw), torch.zeros(S, R, **f64_kw),
+        torch.zeros(S, R, R, **f64_kw), torch.zeros(S, R, R, **f64_kw),
+        torch.zeros(S, dtype=torch.int64, device=device))
+
+    def transform(x):
+        return (x.to(dtype) - shift) * scale + offset
+
+    for s, (off, n, hc) in enumerate(zip(streams.offsets, streams.counts,
+                                         streams.has_coarse)):
+        for start in range(0, n, PLAIN_CHUNK):
+            sl = slice(off + start, off + min(start + PLAIN_CHUNK, n))
+            t_f = transform(streams.fine[sl])
+            valid = (t_f >= lo) & (t_f <= hi)
+            if hc:
+                t_c = transform(streams.coarse[sl])
+                valid = valid & (t_c >= lo) & (t_c <= hi)
+            pf = _basis_rows_plain(t_f, valid, R, basis)
+            pc = _basis_rows_plain(t_c, valid, R, basis) if hc else None
+            for field, value in zip(out[:4], _row_sums(pf, pc, absolute)):
+                field[s] += value
+            out.n_valid[s] += valid.sum()
+    return out
+
+
+def _samples_launch(fn_name, streams, n_moments, basis, consts, device):
+    """Launch kernel C or D (``fn_name``) and its per-stream reduction."""
+    device = cuda_device(device)
+    lib = load_library("samples_mlmc")
+    for x in (streams.fine, streams.coarse):
+        if x.device != device or x.dtype != torch.float32 \
+                or not x.is_contiguous():
+            raise ValueError("streams must be contiguous float32 tensors on %s"
+                             % device)
+    S, R = len(streams.counts), int(n_moments)
+    if S == 0:
+        raise ValueError("no streams to reduce")
+    if streams.coarse.numel() != streams.fine.numel() or any(
+            o < 0 or n < 0 or o + n > streams.fine.numel()
+            for o, n in zip(streams.offsets, streams.counts)):
+        raise ValueError("stream offsets/counts exceed the packed buffers")
+    blocks, stream_blocks = _block_tables(streams.counts, streams.offsets,
+                                          span=SAMPLES_SPAN)
+    codes = _slot_codes(R)
+    hasc = np.asarray([1 if h else 0 for h in streams.has_coarse], np.int32)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    blk_d, sb_d, hasc_d, codes_d = (dev(blocks), dev(stream_blocks),
+                                    dev(hasc), dev(codes))
+    n_blk, n_slots = blocks.shape[0], codes.shape[0]
+    partial = torch.empty(n_blk, n_slots, dtype=torch.float64, device=device)
+    partial_n = torch.empty(n_blk, dtype=torch.int64, device=device)
+    out = SynthMomentResult(
+        torch.empty(S, R, dtype=torch.float64, device=device),
+        torch.empty(S, R, dtype=torch.float64, device=device),
+        torch.empty(S, R, R, dtype=torch.float64, device=device),
+        torch.empty(S, R, R, dtype=torch.float64, device=device),
+        torch.empty(S, dtype=torch.int64, device=device))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _check(getattr(lib, fn_name)(
+            streams.fine.data_ptr(), streams.coarse.data_ptr(),
+            blk_d.data_ptr(), n_blk, hasc_d.data_ptr(), sb_d.data_ptr(), S,
+            codes_d.data_ptr(), n_slots, R, BASES[basis], *consts,
+            partial.data_ptr(), partial_n.data_ptr(),
+            *(field.data_ptr() for field in out), stream), fn_name)
+    return out
+
+
+def samples_mlmc_cuda(streams, n_moments, *, basis, consts, device):
+    """Launch kernel C: every stream's accumulators in one launch.
+
+    :param consts: f32 ``transform_constants``
+    :return: stacked SynthMomentResult [S, ...] (float64, int64 counts)
+    """
+    out = _samples_launch("samples_mlmc_launch", streams, n_moments, basis,
+                          consts, device)
+    samples_mlmc_cuda.launches += 1
+    return out
+
+
+samples_mlmc_cuda.launches = 0
+
+
+def samples_mlmc_plain(streams, n_moments, *, basis, consts, absolute=False):
+    """Plain version of kernel C (f32 transform and rows, f64 sums)."""
+    return samples_plain(streams, n_moments, basis=basis, consts=consts,
+                         absolute=absolute)
+
+
+def samples_moments(streams, n_moments, *, domain, ref_domain=(-1.0, 1.0),
+                    basis="legendre"):
+    """Kernel C for streams on a CUDA device, its plain version for
+    streams on the CPU; stacked SynthMomentResult [S, ...]."""
+    _check_basis(basis, n_moments)
+    consts = transform_constants(domain, ref_domain)
+    if streams.fine.device.type == "cuda":
+        return samples_mlmc_cuda(streams, n_moments, basis=basis,
+                                 consts=consts, device=streams.fine.device)
+    return samples_mlmc_plain(streams, n_moments, basis=basis, consts=consts)
+
+
 def launch_counts():
-    """Launches of each kernel since the last reset."""
+    """Launches of each kernel of this module since the last reset."""
     return {"synth_mlmc": synth_mlmc_cuda.launches,
-            "normals_dump": normals_dump_cuda.launches}
+            "normals_dump": normals_dump_cuda.launches,
+            "samples_mlmc": samples_mlmc_cuda.launches}
 
 
 def reset_launch_counts():
     synth_mlmc_cuda.launches = 0
     normals_dump_cuda.launches = 0
+    samples_mlmc_cuda.launches = 0
 
 
 # --------------------------------------------------------------------- #
 # public entry points (mlmc_tpu.ops.pallas_kernels names)
 # --------------------------------------------------------------------- #
-def _resolve_device(device):
-    device = torch.device("cpu" if device is None else device)
-    if device.type == "cuda":
-        return _cuda_device(device)
-    if device.type != "cpu":
-        raise ValueError("unsupported device %s" % device)
-    return device
-
-
 def _synth_levels(x_levels, seed, n_per_level, fine_steps, coarse_steps,
                   has_coarse, n_moments, domain, device):
     """Dispatch on the device: kernel A on CUDA, the plain version on CPU."""
@@ -421,7 +611,7 @@ def synth_mlmc_pipeline(seed, n_moments, n_per_level, level_steps, *,
     fine, coarse, has_coarse = _ladder(level_steps)
     return _per_level(_synth_levels(
         None, seed, [int(n) for n in n_per_level], fine, coarse, has_coarse,
-        int(n_moments), domain, _resolve_device(device)))
+        int(n_moments), domain, resolve_device(device)))
 
 
 def _as_f32_tensor(x, device):
@@ -436,18 +626,15 @@ def synth_mlmc_pipeline_from_noise(noise_per_level, n_moments, level_steps, *,
     """Memory mode of kernel A: level l's x values come from
     ``noise_per_level[l]`` instead of the in-kernel generator.
 
-    :param device: defaults to the device of the first tensor (CPU for
-        numpy input)
+    :param device: defaults to the device of the first tensor (the current
+        CUDA device for numpy input)
     :return: list of SynthMomentResult, one per level
     """
     if len(noise_per_level) != len(level_steps):
         raise ValueError(
             "noise_per_level has %d entries but level_steps has %d"
             % (len(noise_per_level), len(level_steps)))
-    if device is None:
-        first = noise_per_level[0]
-        device = first.device if isinstance(first, torch.Tensor) else "cpu"
-    device = _resolve_device(device)
+    device = resolve_device(device, like=noise_per_level[0])
     xs = [_as_f32_tensor(x, device) for x in noise_per_level]
     fine, coarse, has_coarse = _ladder(level_steps)
     return _per_level(_synth_levels(
@@ -465,7 +652,7 @@ def synth_moment_pipeline(seed, n_moments, n_samples, *, fine_step,
     """
     return _per_level(_synth_levels(
         None, seed, [int(n_samples)], [float(fine_step)], [float(coarse_step)],
-        [not is_level0], int(n_moments), domain, _resolve_device(device)))[0]
+        [not is_level0], int(n_moments), domain, resolve_device(device)))[0]
 
 
 def synth_moment_pipeline_from_noise(noise, n_moments, *, fine_step,
@@ -475,9 +662,7 @@ def synth_moment_pipeline_from_noise(noise, n_moments, *, fine_step,
 
     :return: SynthMomentResult
     """
-    if device is None:
-        device = noise.device if isinstance(noise, torch.Tensor) else "cpu"
-    device = _resolve_device(device)
+    device = resolve_device(device, like=noise)
     x = _as_f32_tensor(noise, device)
     return _per_level(_synth_levels(
         [x], 0, [x.numel()], [float(fine_step)], [float(coarse_step)],
@@ -489,8 +674,101 @@ def synth_normals(seed, n_samples, *, level=0, start=0, device=None):
 
     :return: float32 tensor [n_samples]
     """
-    device = _resolve_device(device)
+    device = resolve_device(device)
     if device.type == "cuda":
         return normals_dump_cuda(seed, n_samples, level=level, start=start,
                                  device=device)
     return philox_normals(seed, level, start, n_samples, device=device)
+
+
+def moment_pipeline_from_samples(fine, coarse, n_moments, *, domain,
+                                 ref_domain=(-1.0, 1.0), basis="legendre",
+                                 is_level0=False, device=None):
+    """Moment accumulators of one stream of stored QoIs: an L=1 call of
+    kernel C. NaN and out-of-domain samples are dropped.
+
+    :param fine/coarse: [N] arrays or tensors (coarse ignored, and may be
+        None, for level 0)
+    :param ref_domain: the basis' reference domain (clip bounds)
+    :param device: defaults to the device of ``fine`` (the current CUDA
+        device for numpy input)
+    :return: SynthMomentResult (float64 sums, int64 n_valid)
+    """
+    device = resolve_device(device, like=fine)
+    f = _as_f32_tensor(fine, device)
+    c = None if is_level0 or coarse is None else _as_f32_tensor(coarse, device)
+    streams = pack_streams([f], [c], [not is_level0])
+    return _per_level(samples_moments(streams, int(n_moments), domain=domain,
+                                      ref_domain=ref_domain, basis=basis))[0]
+
+
+def _pow2_chunks(n, chunk):
+    """Chunks of a packed stream: a power of two >= ceil(n / chunk), >= 1."""
+    return 1 << (max(-(-int(n) // chunk), 1) - 1).bit_length()
+
+
+def pack_level_samples(level_fine, level_coarse, chunk=16384):
+    """Concatenate per-level QoI arrays, NaN-padding each level to a
+    power-of-two number of chunks (the layout of
+    ``mlmc_moment_pipeline_from_samples``). Tensors stay on their device;
+    numpy inputs stay numpy.
+
+    :return: (fine [total_pad], coarse [total_pad], n_per_level tuple)
+    """
+    on_torch = any(isinstance(f, torch.Tensor) for f in level_fine)
+    f_parts, c_parts, counts = [], [], []
+    for f, c in zip(level_fine, level_coarse):
+        if on_torch:
+            f = torch.as_tensor(f, dtype=torch.float32).reshape(-1)
+            c = torch.zeros_like(f) if c is None else torch.as_tensor(
+                c, dtype=torch.float32, device=f.device).reshape(-1)
+            pad = torch.full((_pow2_chunks(f.numel(), chunk) * chunk
+                              - f.numel(),), float("nan"), dtype=torch.float32,
+                             device=f.device)
+            f_parts += [f, pad]
+            c_parts += [c, pad]
+        else:
+            f = np.asarray(f, dtype=np.float32).reshape(-1)
+            c = np.zeros_like(f) if c is None else np.asarray(
+                c, dtype=np.float32).reshape(-1)
+            pad = _pow2_chunks(f.size, chunk) * chunk - f.size
+            f_parts.append(np.pad(f, (0, pad), constant_values=np.nan))
+            c_parts.append(np.pad(c, (0, pad), constant_values=np.nan))
+        counts.append(int(f.shape[0]))
+    cat = torch.cat if on_torch else np.concatenate
+    return cat(f_parts), cat(c_parts), tuple(counts)
+
+
+def mlmc_moment_pipeline_from_samples(fine, coarse, n_per_level, n_moments,
+                                      *, domain, ref_domain=(-1.0, 1.0),
+                                      basis="legendre", chunk=16384,
+                                      has_coarse=None, device=None):
+    """All levels (or (component, level) streams) of a stored-sample
+    moment estimate in one kernel C launch.
+
+    :param fine/coarse: the packed buffers of ``pack_level_samples``
+    :param n_per_level: true per-stream counts
+    :param has_coarse: per-stream coarse flags; default: every level but
+        level 0
+    :param device: defaults to the device of ``fine`` (the current CUDA
+        device for numpy input)
+    :return: list of SynthMomentResult, one per stream
+    """
+    counts = [int(n) for n in n_per_level]
+    if has_coarse is None:
+        has_coarse = [lvl > 0 for lvl in range(len(counts))]
+    if len(has_coarse) != len(counts):
+        raise ValueError("has_coarse has %d entries but n_per_level has %d"
+                         % (len(has_coarse), len(counts)))
+    sizes = [_pow2_chunks(n, chunk) * chunk for n in counts]
+    device = resolve_device(device, like=fine)
+    f = _as_f32_tensor(fine, device)
+    c = _as_f32_tensor(coarse, device)
+    if f.numel() != sum(sizes) or c.numel() != sum(sizes):
+        raise ValueError("packed buffers hold %d samples, the chunk layout "
+                         "needs %d" % (f.numel(), sum(sizes)))
+    offsets = tuple(int(o) for o in np.concatenate([[0], np.cumsum(sizes)])[:-1])
+    streams = SampleStreams(f.contiguous(), c.contiguous(), offsets,
+                            tuple(counts), tuple(bool(h) for h in has_coarse))
+    return _per_level(samples_moments(streams, int(n_moments), domain=domain,
+                                      ref_domain=ref_domain, basis=basis))

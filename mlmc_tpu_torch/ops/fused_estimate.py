@@ -18,6 +18,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mlmc_tpu_torch.device import resolve_device
+
 
 class MomentAccumulators(NamedTuple):
     """Per-level streaming state (tensors on the level's device)."""
@@ -70,8 +72,11 @@ def fused_level_moments(sample_chunk_fn, moments_fn, generator, n_samples,
     :param chunk_size: samples per loop step
     :param is_level0: True -> coarse contributions are zero
     :param acc_dtype: accumulator dtype
+    :param device: where samples are drawn and reduced; None = the
+        generator's device
     :return: MomentAccumulators
     """
+    device = resolve_device(device, like=generator)
     n_samples = int(n_samples)
     comp = None
     acc = None
@@ -175,8 +180,10 @@ def fused_mlmc_moments(sim_chunk_fns, moments_fn, seed, n_samples_per_level,
 
     :param sim_chunk_fns: per-level ``f(generator, n, device) -> (fine,
         coarse, failed)``
+    :param device: None = the current CUDA device
     :return: list of MomentAccumulators, one per level
     """
+    device = resolve_device(device)
     accs = []
     for lvl, (fn, n) in enumerate(zip(sim_chunk_fns, n_samples_per_level)):
         accs.append(fused_level_moments(

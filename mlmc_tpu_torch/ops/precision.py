@@ -1,7 +1,8 @@
-"""f64 host reference + derived error bound for the f32 value path.
+"""f64 host references + derived error bounds of the kernels' two tiers.
 
-Counterpart of ``mlmc_tpu/ops/precision.py`` (the f32 tier; the
-double-float part has no counterpart: the GPU has native f64). The
+Counterpart of ``mlmc_tpu/ops/precision.py``. Its double-float bound
+(``df_error_bound``) has no counterpart: the GPU has native f64, and the
+f64 tier carries the bound of ``extended_error_bound`` below. The
 Pallas kernels compute per-sample values in f32 and accumulate in f32 with
 Kahan compensation. The CUDA kernels of this package compute the same f32
 per-sample values and accumulate in f64, so they sit far inside the bound
@@ -162,4 +163,139 @@ def check_against_f64(result, ref, include_cov=True):
             raise AssertionError(
                 "%s exceeds derived f32 bound at %s: err=%.3g bound=%.3g"
                 % (name, worst, err[worst], bound[worst]))
+    return report
+
+
+# ------------------------------------------------------------------ #
+# f64 tier (kernel D): strict all-f64 reference + derived bound
+# ------------------------------------------------------------------ #
+EPS64 = float(np.finfo(np.float64).eps)  # 2.2e-16
+# Kernel D computes the transform and the rows in f64 with the same IEEE
+# operations in the same order as the reference (no contraction:
+# --fmad=false), so Legendre and monomial values agree bit for bit; only
+# Fourier's cos/sin seeds may differ by an ulp, which the angle-addition
+# recurrence carries along at most ~2 roundings per step. The sums add
+# a 64-term product chain per tile, then Kahan across tiles and across
+# blocks (one rounding each). Recurrence (2 x 32) + tile chain (64)
+# + 2 Kahan residuals, with a 4x margin:
+C_BOUND64 = 4 * (2 * 32 + 64 + 2)
+
+
+def extended_error_bound(abs_sums):
+    """Derived bound on |f64 kernel - all-f64 reference| (~1.2e-13 * S_abs),
+    inside the f64 tier's contract of 1e-12 * S_abs."""
+    return EPS64 * C_BOUND64 * np.asarray(abs_sums)
+
+
+def f64_reference_moments_strict(noise=None, n_moments=None, *,
+                                 fine_step=None, coarse_step=None, domain,
+                                 is_level0=False, chunk=262144,
+                                 include_cov=True, fine32=None,
+                                 coarse32=None):
+    """All-f64 Legendre reference for the f64 tier on identical f32 QoIs:
+    the QoIs are f32 (what a store holds), then the domain transform
+    t = (x - (a + b)/2) * 2/(b - a), the recurrence and every sum run in
+    f64.
+
+    Pass either ``noise`` + steps (the synth QoIs are recomputed in numpy
+    f32) or the QoI arrays ``fine32``/``coarse32`` themselves.
+
+    :return: dict(sums, sums2, cov_fine, cov_coarse, n_valid, abs_*)
+    """
+    if fine32 is None:
+        noise = np.asarray(noise, dtype=np.float32)
+        err = np.sqrt(np.float32(1e-4) + np.abs(noise), dtype=np.float32)
+        fine32 = (noise + np.float32(fine_step) * err).astype(np.float32)
+        coarse32 = (noise + np.float32(coarse_step) * err).astype(
+            np.float32)
+    else:
+        fine32 = np.asarray(fine32, dtype=np.float32)
+        coarse32 = (np.zeros_like(fine32) if coarse32 is None
+                    else np.asarray(coarse32, dtype=np.float32))
+    R = n_moments
+    a, b = (np.float64(domain[0]), np.float64(domain[1]))
+    t_scale = 2.0 / (b - a)
+    t_shift = (a + b) / 2.0
+
+    sums = np.zeros(R)
+    sums2 = np.zeros(R)
+    cov_f = np.zeros((R, R))
+    cov_c = np.zeros((R, R))
+    abs_sums = np.zeros(R)
+    abs_sums2 = np.zeros(R)
+    abs_cov_f = np.zeros((R, R))
+    abs_cov_c = np.zeros((R, R))
+    n_valid = 0
+
+    def legendre_f64(t, valid):
+        t = np.where(valid, t, 0.0)
+        phi = np.zeros((R, t.shape[0]))
+        phi[0] = valid.astype(np.float64)
+        if R > 1:
+            phi[1] = t
+        for k in range(2, R):
+            phi[k] = ((2 * k - 1) * t * phi[k - 1]
+                      - (k - 1) * phi[k - 2]) / k
+        return phi
+
+    n = fine32.shape[0]
+    for start in range(0, n, chunk):
+        t_f = (fine32[start:start + chunk].astype(np.float64)
+               - t_shift) * t_scale
+        t_c = (coarse32[start:start + chunk].astype(np.float64)
+               - t_shift) * t_scale
+        valid = (t_f >= -1) & (t_f <= 1)
+        if not is_level0:
+            valid &= (t_c >= -1) & (t_c <= 1)
+
+        pf = legendre_f64(t_f, valid)
+        if is_level0:
+            dphi = pf
+        else:
+            pc = legendre_f64(t_c, valid)
+            dphi = pf - pc
+
+        sums += dphi.sum(axis=1)
+        sq = (dphi * dphi).sum(axis=1)
+        sums2 += sq
+        abs_sums += np.abs(dphi).sum(axis=1)
+        abs_sums2 += sq
+        if include_cov:
+            cov_f += pf @ pf.T
+            abs_cov_f += np.abs(pf) @ np.abs(pf).T
+            if not is_level0:
+                cov_c += pc @ pc.T
+                abs_cov_c += np.abs(pc) @ np.abs(pc).T
+        n_valid += int(valid.sum())
+
+    return dict(sums=sums, sums2=sums2, cov_fine=cov_f, cov_coarse=cov_c,
+                n_valid=n_valid, abs_sums=abs_sums, abs_sums2=abs_sums2,
+                abs_cov_fine=abs_cov_f, abs_cov_coarse=abs_cov_c)
+
+
+def check_extended_against_f64(result, ref, include_cov=True):
+    """Assert an f64-tier result against the strict reference and
+    ``extended_error_bound`` (every field, covariance included).
+
+    :param result: ExtendedMomentResult or SynthMomentResult
+    :param ref: dict from f64_reference_moments_strict
+    :return: dict of measured max deviations / max(S_abs, 1)
+    """
+    if int(result.n_valid) != ref["n_valid"]:
+        raise AssertionError("n_valid %d != reference %d"
+                             % (int(result.n_valid), ref["n_valid"]))
+    report = {}
+    names = ["sums", "sums2"] + (["cov_fine", "cov_coarse"] if include_cov
+                                 else [])
+    for name in names:
+        got = _np(getattr(result, name)).astype(np.float64)
+        scale = np.maximum(ref["abs_" + name], 1.0)
+        err = np.abs(got - ref[name])
+        report[name] = float(np.max(err / scale))
+        if not np.all(err <= extended_error_bound(scale)):
+            worst = np.unravel_index(np.argmax(err / scale), err.shape)
+            raise AssertionError(
+                "extended %s exceeds the f64 bound at %s: err=%.3g bound=%.3g"
+                % (name, worst, err[worst],
+                   extended_error_bound(scale)[worst]))
     return report

@@ -1,12 +1,13 @@
 """Result-schema metadata (counterpart of
 ``mlmc_tpu/quantity/quantity_spec.py``).
 
-A host-side dataclass; no device work. ``QuantitySpec`` describes the
-flattened result vector a simulation produces.
+Host-side dataclasses; no device work. ``QuantitySpec`` describes the
+flattened result vector a simulation produces, ``ChunkSpec`` identifies one
+streamed chunk of a level's collected samples.
 """
 import dataclasses
 import numpy as np
-from typing import List, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 
 @dataclasses.dataclass
@@ -32,3 +33,16 @@ class QuantitySpec:
 
 def tuple_key(loc):
     return tuple(loc) if isinstance(loc, (list, tuple, np.ndarray)) else loc
+
+
+def result_size(q_specs: List[QuantitySpec]) -> int:
+    """Total flattened result-vector length M for a simulation result format."""
+    return int(sum(q.size() for q in q_specs))
+
+
+@dataclasses.dataclass
+class ChunkSpec:
+    chunk_id: Optional[int] = None
+    chunk_slice: Optional[slice] = None
+    level_id: Optional[int] = None
+    n_samples: Optional[int] = None

@@ -17,6 +17,11 @@ class TorchDistr:
         (the generator must live on the same device)."""
         raise NotImplementedError
 
+    def from_standard_normals(self, z):
+        """Variates from standard normals ``z`` (counter-based draws)."""
+        raise NotImplementedError(
+            "{} has no map from standard normals".format(type(self).__name__))
+
 
 @dataclasses.dataclass(frozen=True)
 class Norm(TorchDistr):
@@ -25,6 +30,9 @@ class Norm(TorchDistr):
 
     def sample(self, generator, shape=(), device=None, dtype=torch.float64):
         z = torch.randn(shape, generator=generator, device=device, dtype=dtype)
+        return self.loc + self.scale * z
+
+    def from_standard_normals(self, z):
         return self.loc + self.scale * z
 
 

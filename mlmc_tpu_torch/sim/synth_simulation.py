@@ -9,7 +9,12 @@
 * ``nan_fraction`` failure injection -> failed samples.
 
 ``calculate_batch`` and ``scalar_batch_fn`` compute a whole batch from an
-explicit ``torch.Generator`` as tensor code on the caller's device.
+explicit ``torch.Generator`` as tensor code on the caller's device (the
+storage-free drivers). ``calculate_keyed_batch`` is the Sampler-facing
+batch path of the ``DeviceBatchPool``: each sample's random input is a
+function of (seed, level, index, attempt) alone, drawn with the Philox
+stream of ``ops/cuda_kernels``, so how a level is cut into batches does
+not change its samples.
 """
 from typing import List
 
@@ -39,6 +44,11 @@ class SynthSimulation(Simulation):
         self.config.setdefault("complexity", 2)
         self.nan_fraction = float(config.get("nan_fraction", 0.0))
         self._distr = as_torch_distr(self.config["distr"])
+
+    #: config entries that vary per level as plain scalars (the structural
+    #: level-0 difference is the ``is_level0`` flag set by level_instance);
+    #: eager PyTorch shares one code path across levels without them
+    DYNAMIC_CONFIG = ("fine_step", "coarse_step")
 
     @staticmethod
     def sample_fn(x, h):
@@ -93,6 +103,52 @@ class SynthSimulation(Simulation):
             failed = torch.rand(int(n), generator=generator, device=device) < nan_fraction
         else:
             failed = torch.zeros(int(n), dtype=torch.bool, device=device)
+        return (SynthSimulation._expand_results(config, fine),
+                SynthSimulation._expand_results(config, coarse), failed)
+
+    @staticmethod
+    def calculate_keyed_batch(config, seed, level_id, indices, attempts):
+        """Whole level batch from sample identities.
+
+        Sample ``i`` draws its values from Philox4x32-10 calls with key
+        ``seed`` and counter (index low word, index high word, level,
+        attempt << 8 | j), two normals per call j (Box-Muller on words 0-1
+        and 2-3), and its failure flag from the call j = 255.
+
+        :param indices: int64 tensor [B] of sample indices
+        :param attempts: int64 tensor [B] of retry counts (salting renewals)
+        :return: (fine [B, M], coarse [B, M], failed [B]) on the indices'
+            device; values float32
+        """
+        from mlmc_tpu_torch.ops.cuda_kernels import (
+            _MASK32, _key_words, box_muller, philox4x32_10)
+
+        key = _key_words(seed)
+        counter = (indices & _MASK32, indices >> 32,
+                   torch.full_like(indices, int(level_id)), attempts << 8)
+
+        def philox(j):
+            return philox4x32_10(counter[:3] + (counter[3] | j,), key)
+
+        size = int(np.prod(config["res_format"][0].shape))
+        normals = []
+        for j in range(-(-size // 2)):
+            w = philox(j)
+            normals += [box_muller(w[0], w[1]), box_muller(w[2], w[3])]
+        y = config["distr"].from_standard_normals(
+            torch.stack(normals[:size], dim=1))
+        fine = SynthSimulation.sample_fn(y, config["fine_step"])
+        if SynthSimulation._is_level0(config):
+            coarse = torch.zeros_like(fine)
+        else:
+            coarse = SynthSimulation.sample_fn(y, config["coarse_step"])
+        nan_fraction = config.get("nan_fraction", 0.0)
+        if nan_fraction > 0:
+            u = (philox(255)[0] >> 8).to(torch.float32) * (1.0 / (1 << 24))
+            failed = u < nan_fraction
+        else:
+            failed = torch.zeros(indices.shape, dtype=torch.bool,
+                                 device=indices.device)
         return (SynthSimulation._expand_results(config, fine),
                 SynthSimulation._expand_results(config, coarse), failed)
 

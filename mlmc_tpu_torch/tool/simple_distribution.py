@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 import mlmc_tpu_torch.moments
+from mlmc_tpu_torch.device import resolve_device
 
 EXACT_QUAD_LIMIT = 1000
 
@@ -239,7 +240,8 @@ class SimpleDistribution:
         :param force_decay: enforce pdf decay at each endpoint (penalty)
         :param solver_backend: 'torch' (f64 Newton on ``device``) or
             'numpy' (host mirror)
-        :param device: device of the torch Newton solve (default CPU)
+        :param device: device of the torch Newton solve; None = the current
+            CUDA device (the numpy backend runs on the host)
         """
         if domain is None:
             domain = moments_obj.domain
@@ -263,7 +265,8 @@ class SimpleDistribution:
         if solver_backend not in ("torch", "numpy"):
             raise ValueError("solver_backend must be 'torch' or 'numpy'")
         self._solver_backend = solver_backend
-        self._device = torch.device("cpu" if device is None else device)
+        self._device = (resolve_device(device) if solver_backend == "torch"
+                        else torch.device("cpu"))
 
     # ------------------------------------------------------------------ #
     def eval_moments(self, x):

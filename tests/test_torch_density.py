@@ -54,8 +54,9 @@ def _solve(pkg_sd, pkg_m, backend, R=8):
                                                     cov, tol=1e-7)
     mu = info[2] @ mean
     data = np.stack((mu, np.ones(orto.size)), axis=1)
+    host = {"device": "cpu"} if pkg_sd is tsd else {}
     d = pkg_sd.SimpleDistribution(orto, data, domain=DOMAIN,
-                                  solver_backend=backend)
+                                  solver_backend=backend, **host)
     return d, d.estimate_density_minimize(tol=1e-9)
 
 

@@ -68,7 +68,7 @@ def test_fused_level_moments_matches_jax(is_level0):
                                    is_level0=is_level0)
     got = tfe.fused_level_moments(_torch_chunk_fn(fine, coarse, failed),
                                   moments_from_jax(jmfn), None, n, 512,
-                                  is_level0=is_level0)
+                                  is_level0=is_level0, device="cpu")
     for field in tfe.MomentAccumulators._fields:
         np.testing.assert_allclose(getattr(got, field).numpy(),
                                    np.asarray(getattr(want, field)),
@@ -88,7 +88,8 @@ def test_accumulators_to_estimates_matches_jax():
             jfn, jmfn, jax.random.key(0), len(fine), len(fine),
             is_level0=(lvl == 0)))
     want = jfe.accumulators_to_estimates(accs_j)
-    got = tfe.accumulators_to_estimates([accumulators_from_jax(a) for a in accs_j])
+    got = tfe.accumulators_to_estimates([accumulators_from_jax(a, device="cpu")
+                                         for a in accs_j])
     for key in want:
         np.testing.assert_allclose(got[key], want[key], rtol=RTOL, err_msg=key)
 
@@ -121,7 +122,8 @@ def _fns(distr):
 
 def test_fused_mlmc_run_meets_target():
     mfn = mt.Legendre(6, (-4.0, 4.0))
-    driver = mt.FusedMLMC(_fns(mt.Norm()), mfn, seed=1, chunk_size=2048)
+    driver = mt.FusedMLMC(_fns(mt.Norm()), mfn, seed=1, chunk_size=2048,
+                          device="cpu")
     target = 2e-5
     est = driver.run(target, initial_n=(512, 64))
     assert np.max(est["var"][1:]) <= target
@@ -135,7 +137,7 @@ def test_fused_mlmc_sim_level_chunk_fns_path():
     sim = mt.SynthSimulation(dict(distr="norm", complexity=2))
     fns = mt.sim_level_chunk_fns(sim, [[s] for s in STEPS], component=3)
     driver = mt.FusedMLMC(fns, mt.Legendre(4, (-4.0, 6.0)), seed=2,
-                          chunk_size=1024)
+                          chunk_size=1024, device="cpu")
     for lvl in range(3):
         driver._run_level(lvl, 1500)
     est = driver.estimates()
@@ -145,7 +147,8 @@ def test_fused_mlmc_sim_level_chunk_fns_path():
 
 def test_checkpoint_resume_continues_streams(tmp_path):
     mfn = mt.Legendre(5, (-4.0, 4.0))
-    d1 = mt.FusedMLMC(_fns(mt.Norm()), mfn, seed=4, chunk_size=128)
+    d1 = mt.FusedMLMC(_fns(mt.Norm()), mfn, seed=4, chunk_size=128,
+                      device="cpu")
     for lvl in range(3):
         d1._run_level(lvl, 256)
     ckpt = str(tmp_path / "state.npz")
@@ -153,7 +156,8 @@ def test_checkpoint_resume_continues_streams(tmp_path):
     for lvl in range(3):
         d1._run_level(lvl, 128)
 
-    d2 = mt.FusedMLMC(_fns(mt.Norm()), mfn, seed=4, chunk_size=128)
+    d2 = mt.FusedMLMC(_fns(mt.Norm()), mfn, seed=4, chunk_size=128,
+                      device="cpu")
     d2.load_state(ckpt)
     for lvl in range(3):
         d2._run_level(lvl, 128)
@@ -161,7 +165,8 @@ def test_checkpoint_resume_continues_streams(tmp_path):
     np.testing.assert_array_equal(e1["mean"], e2["mean"])
     assert e1["n_samples"].tolist() == e2["n_samples"].tolist()
     # a continued round draws new samples: the stream never restarts
-    d3 = mt.FusedMLMC(_fns(mt.Norm()), mfn, seed=4, chunk_size=128)
+    d3 = mt.FusedMLMC(_fns(mt.Norm()), mfn, seed=4, chunk_size=128,
+                      device="cpu")
     for lvl in range(3):
         d3._run_level(lvl, 128)
     assert not np.array_equal(d3.estimates()["mean"], e1["mean"])
@@ -188,7 +193,8 @@ def test_load_state_reads_mlmc_tpu_checkpoint(tmp_path):
     ckpt = str(tmp_path / "jax_state.npz")
     jdrv.save_state(ckpt)
 
-    drv = mt.FusedMLMC(_fns(mt.Norm()), moments_from_jax(jmfn), seed=0)
+    drv = mt.FusedMLMC(_fns(mt.Norm()), moments_from_jax(jmfn), seed=0,
+                       device="cpu")
     drv.load_state(ckpt)
     want, got = jdrv.estimates(), drv.estimates()
     for key in want:

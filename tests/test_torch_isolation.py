@@ -10,20 +10,37 @@ import numpy as np
 import pytest
 import torch
 
+import mlmc_tpu_torch as mt
 from mlmc_tpu_torch.ops import cuda_kernels as ck
 
 REPO = Path(__file__).resolve().parent.parent
 
 _SCRIPT = r"""
+import importlib
+import pkgutil
 import sys
 sys.modules["jax"] = None          # any "import jax" now raises ImportError
 sys.modules["mlmc_tpu"] = None
 import numpy as np
 import mlmc_tpu_torch as mt
+for info in pkgutil.walk_packages(mt.__path__, "mlmc_tpu_torch."):
+    importlib.import_module(info.name)    # every module of the package
 from mlmc_tpu_torch.ops.fused_estimate import accumulators_to_estimates
-accs = mt.synth_mlmc_pipeline(1, 6, [2000, 500], [0.5, 0.25], domain=(-4, 4))
+accs = mt.synth_mlmc_pipeline(1, 6, [2000, 500], [0.5, 0.25], domain=(-4, 4),
+                              device="cpu")
 est = accumulators_to_estimates(accs)
 assert est["mean"][0] == 1.0
+sim = mt.SynthSimulation(dict(distr="norm", complexity=2))
+storage = mt.DeviceMemory(device="cpu")
+sampler = mt.Sampler(storage, mt.DeviceBatchPool(seed=1, device="cpu"), sim,
+                     [[0.5], [0.25]])
+sampler.set_initial_n_samples([500, 100])
+sampler.schedule_samples()
+sampler.ask_sampling_pool_for_samples()
+root = mt.make_root_quantity(storage, sim.result_format())
+e = mt.Estimate(root["length"][1]["10"][0, 0], storage, mt.Legendre(5, (-4, 4)))
+assert e.estimate_moments_fast()[0][0] == 1.0
+assert e.estimate_moments_extended()[0][0] == 1.0
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m in ("jax", "mlmc_tpu") or m.startswith(("jax.", "mlmc_tpu.")))]
 assert not loaded, loaded
@@ -44,6 +61,41 @@ def test_no_jax_imports_in_sources():
     files = sorted((REPO / "mlmc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
+
+
+def _default_device_calls():
+    """Entry points called without a device: each must pick the card."""
+    x = np.zeros(64, np.float32)
+    return {
+        "synth_mlmc_pipeline": lambda: mt.synth_mlmc_pipeline(
+            0, 5, (100,), (0.5,), domain=(-4, 4)),
+        "from_noise_numpy": lambda: mt.synth_moment_pipeline_from_noise(
+            x, 5, fine_step=0.5, coarse_step=0.25, domain=(-4, 4)),
+        "synth_normals": lambda: mt.synth_normals(0, 64),
+        "samples_numpy": lambda: mt.moment_pipeline_from_samples(
+            x, x, 5, domain=(-4, 4)),
+        "samples_extended_numpy": lambda: mt.moment_pipeline_from_samples_extended(
+            x, x, 5, domain=(-4, 4)),
+        "device_memory": lambda: mt.DeviceMemory(),
+        "device_batch_pool": lambda: mt.DeviceBatchPool(),
+        "root_of_host_memory": lambda: mt.make_root_quantity(
+            mt.Memory(), mt.SynthSimulation().result_format()),
+        "fused_mlmc": lambda: mt.FusedMLMC([], mt.Legendre(3, (-1, 1))),
+        "fused_mlmc_moments": lambda: mt.fused_mlmc_moments(
+            [], mt.Legendre(3, (-1, 1)), 0, []),
+        "simple_distribution": lambda: mt.SimpleDistribution(
+            mt.Legendre(3, (-1, 1)), np.ones((3, 2))),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_default_device_calls()))
+def test_entry_points_default_to_the_card(name):
+    """With no device named, an entry point runs on the current CUDA
+    device; without a card it raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the call runs on it instead")
+    with pytest.raises(RuntimeError, match="is_available"):
+        _default_device_calls()[name]()
 
 
 @pytest.mark.parametrize("call", ["rng", "noise", "normals"])

@@ -74,7 +74,8 @@ def test_memory_mode_vs_pallas_interpret(level):
 
     bound = _jax_precision().accumulation_error_bound
     xs = _level_noise()
-    res = ck.synth_mlmc_pipeline_from_noise(xs, 8, STEPS, domain=DOMAIN)[level]
+    res = ck.synth_mlmc_pipeline_from_noise(xs, 8, STEPS, domain=DOMAIN,
+                                            device="cpu")[level]
     want = jax_from_noise(xs[level], 8, fine_step=STEPS[level],
                           coarse_step=STEPS[level - 1], domain=DOMAIN,
                           chunk=8192, interpret=True)
@@ -88,7 +89,8 @@ def test_memory_mode_vs_pallas_interpret(level):
 @pytest.mark.parametrize("level", [0, 1, 2, 3, 4])
 def test_memory_mode_vs_f64_reference(level):
     xs = _level_noise(n=1 << 14, seed=1)
-    res = ck.synth_mlmc_pipeline_from_noise(xs, 25, STEPS, domain=DOMAIN)[level]
+    res = ck.synth_mlmc_pipeline_from_noise(xs, 25, STEPS, domain=DOMAIN,
+                                            device="cpu")[level]
     ref = _f64_ref(xs[level], level, 25)
     assert int(res.n_valid) == ref["n_valid"]
     assert res.sums.dtype == torch.float64 and res.n_valid.dtype == torch.int64
@@ -116,13 +118,15 @@ def test_single_level_entry_points_match_multi_level():
     """synth_moment_pipeline(_from_noise) are L=1 calls of the same body."""
     x = _level_noise(seed=2)[2]
     multi = ck.synth_mlmc_pipeline_from_noise(
-        [x[:0], x[:0], x], 25, STEPS[:3], domain=DOMAIN)[2]
+        [x[:0], x[:0], x], 25, STEPS[:3], domain=DOMAIN, device="cpu")[2]
     single = ck.synth_moment_pipeline_from_noise(
-        x, 25, fine_step=STEPS[2], coarse_step=STEPS[1], domain=DOMAIN)
+        x, 25, fine_step=STEPS[2], coarse_step=STEPS[1], domain=DOMAIN,
+        device="cpu")
     for a, b in zip(multi, single):
         assert torch.equal(a, b)
     lvl0 = ck.synth_moment_pipeline_from_noise(
-        x, 9, fine_step=0.5, coarse_step=0.0, domain=DOMAIN, is_level0=True)
+        x, 9, fine_step=0.5, coarse_step=0.0, domain=DOMAIN, is_level0=True,
+        device="cpu")
     ref = _jax_precision().f64_reference_moments(
         x, 9, fine_step=0.5, coarse_step=0.0, domain=DOMAIN, is_level0=True)
     assert int(lvl0.n_valid) == ref["n_valid"]
@@ -132,15 +136,16 @@ def test_single_level_entry_points_match_multi_level():
 def test_rng_mode_draws_the_philox_stream():
     """RNG mode == memory mode fed with philox_normals of each level."""
     n_per_level = [5000, 3000, 1000, 0, 17]
-    res = ck.synth_mlmc_pipeline(11, 7, n_per_level, STEPS, domain=DOMAIN)
+    res = ck.synth_mlmc_pipeline(11, 7, n_per_level, STEPS, domain=DOMAIN,
+                                 device="cpu")
     xs = [ck.philox_normals(11, lvl, 0, n) for lvl, n in enumerate(n_per_level)]
-    mem = ck.synth_mlmc_pipeline_from_noise(xs, 7, STEPS, domain=DOMAIN)
+    mem = ck.synth_mlmc_pipeline_from_noise(xs, 7, STEPS, domain=DOMAIN, device="cpu")
     for a, b in zip(res, mem):
         for fa, fb in zip(a, b):
             assert torch.equal(fa, fb)
     single = ck.synth_moment_pipeline(11, 7, 5000, fine_step=0.5,
                                       coarse_step=0.0, domain=DOMAIN,
-                                      is_level0=True)
+                                      is_level0=True, device="cpu")
     for fa, fb in zip(single, res[0]):
         assert torch.equal(fa, fb)
     assert float(res[0].sums[0]) == float(res[0].n_valid)
@@ -160,25 +165,27 @@ def test_port_precision_reference_matches_jax(level):
 
 
 def test_zero_sample_level_returns_zeros():
-    res = ck.synth_mlmc_pipeline(3, 6, [100, 0, 50], STEPS[:3], domain=DOMAIN)
+    res = ck.synth_mlmc_pipeline(3, 6, [100, 0, 50], STEPS[:3], domain=DOMAIN,
+                                 device="cpu")
     assert int(res[1].n_valid) == 0
     for field in res[1]:
         assert not torch.any(field != 0)
     mem = ck.synth_mlmc_pipeline_from_noise(
         [np.zeros(4, np.float32), np.zeros(0, np.float32)], 6, STEPS[:2],
-        domain=DOMAIN)
+        domain=DOMAIN, device="cpu")
     assert int(mem[1].n_valid) == 0 and not torch.any(mem[1].cov_fine != 0)
 
 
 def test_mismatched_lengths_raise():
     with pytest.raises(ValueError):
         ck.synth_mlmc_pipeline(0, 5, (100, 100), (0.5, 0.25, 0.125),
-                               domain=DOMAIN)
+                               domain=DOMAIN, device="cpu")
     with pytest.raises(ValueError):
         ck.synth_mlmc_pipeline_from_noise([np.zeros(8, np.float32)], 5,
-                                          (0.5, 0.25), domain=DOMAIN)
+                                          (0.5, 0.25), domain=DOMAIN, device="cpu")
     with pytest.raises(ValueError):
-        ck.synth_mlmc_pipeline(0, ck.R_PAD + 1, (10,), (0.5,), domain=DOMAIN)
+        ck.synth_mlmc_pipeline(0, ck.R_PAD + 1, (10,), (0.5,), domain=DOMAIN,
+                               device="cpu")
 
 
 # --------------------------------------------------------------------- #
@@ -220,11 +227,13 @@ def test_box_muller_bit_map_matches_normal_pair():
 
 
 def test_synth_normals_index_mapping_and_statistics():
-    z = ck.synth_normals(9, 1 << 16, level=3)
-    part = ck.synth_normals(9, 100, level=3, start=1000)
+    z = ck.synth_normals(9, 1 << 16, level=3, device="cpu")
+    part = ck.synth_normals(9, 100, level=3, start=1000, device="cpu")
     assert torch.equal(z[1000:1100], part)
-    assert not torch.equal(ck.synth_normals(9, 100, level=2), z[:100])
-    assert not torch.equal(ck.synth_normals(10, 100, level=3), z[:100])
+    assert not torch.equal(ck.synth_normals(9, 100, level=2, device="cpu"),
+                           z[:100])
+    assert not torch.equal(ck.synth_normals(10, 100, level=3, device="cpu"),
+                           z[:100])
     z = z.numpy().astype(np.float64)
     assert abs(z.mean()) < 5 / np.sqrt(z.size)
     assert abs(z.var() - 1) < 5 * np.sqrt(2 / z.size)

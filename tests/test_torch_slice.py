@@ -35,7 +35,9 @@ def _density(sd, basis, est, backend):
     orto, info = sd.construct_ortogonal_moments(basis, est["cov"], tol=1e-7)
     mu = info[2] @ est["mean"]
     data = np.stack((mu, np.ones(orto.size)), axis=1)
-    d = sd.SimpleDistribution(orto, data, domain=DOMAIN, solver_backend=backend)
+    host = {"device": "cpu"} if sd is tsd else {}
+    d = sd.SimpleDistribution(orto, data, domain=DOMAIN, solver_backend=backend,
+                              **host)
     return d, d.estimate_density_minimize(tol=1e-9), info
 
 
@@ -43,7 +45,8 @@ def test_slice_matches_mlmc_tpu():
     rng = np.random.default_rng(2024)
     xs = [rng.normal(size=N).astype(np.float32) for _ in STEPS]
 
-    accs = mt.synth_mlmc_pipeline_from_noise(xs, R, STEPS, domain=DOMAIN)
+    accs = mt.synth_mlmc_pipeline_from_noise(xs, R, STEPS, domain=DOMAIN,
+                                             device="cpu")
     est = accumulators_to_estimates(accs)
 
     j_accs = []
@@ -74,7 +77,7 @@ def test_rng_slice_reconstructs_a_normal_density():
     import scipy.stats as st
 
     accs = mt.synth_mlmc_pipeline(7, 12, [1 << 16, 1 << 14, 1 << 13, 1 << 12,
-                                          1 << 11], STEPS, domain=DOMAIN)
+                                          1 << 11], STEPS, domain=DOMAIN, device="cpu")
     est = accumulators_to_estimates(accs)
     assert est["mean"][0] == 1.0
     assert all(int(a.n_valid) > 0.99 * n for a, n in
