@@ -26,9 +26,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
       tier and the packed tier (kernel C) agree within the f32 bound;
    fails unless kernels C and D were launched;
 5. holds each kernel's outputs at its path's shapes against its plain
-   version (kernel D also against an exact f64 summation);
+   version (kernel C at the e2e, config-4 and structured streams; kernel D
+   also against an exact f64 summation);
 6. times each kernel and its plain version at those shapes and computes
-   each kernel's bound from this run's inputs.
+   each kernel's bound from this run's inputs; kernel C also at its
+   largest launch, the structured tier's 12 x 5 streams.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout. The last line is {"ok": true, "device": {...}}; the line before
@@ -537,12 +539,15 @@ def stored_path(torch, dev):
     with Phase(torch, "kernels C/D vs plain"):
         streams = est._packed_streams(est._moments_fn, [0])
         c4_streams = c4_est._packed_streams(c4_mfn, [0, 1])
+        streams12 = est12._packed_streams(mfn, list(range(12)))
         c_consts = ck.transform_constants(DOMAIN)
         err_c, got_c = 0.0, []
         for what, st_, R, consts in (
                 ("kernel C at the e2e streams", streams, N_MOMENTS, c_consts),
                 ("kernel C at the config-4 streams", c4_streams, 8,
-                 ck.transform_constants(c4_mfn.domain))):
+                 ck.transform_constants(c4_mfn.domain)),
+                ("kernel C at the structured streams", streams12, N_MOMENTS,
+                 c_consts)):
             got = ck.samples_mlmc_cuda(st_, R, basis="legendre", consts=consts, device=dev)
             plain, s_abs = (ck.samples_mlmc_plain(st_, R, basis="legendre", consts=consts,
                                                   absolute=a) for a in (False, True))
@@ -581,6 +586,8 @@ def stored_path(torch, dev):
     # ---- times and bounds at the path's shapes ------------------------ #
     c_ms = _time_ms(torch, lambda: ck.samples_mlmc_cuda(
         streams, N_MOMENTS, basis="legendre", consts=c_consts, device=dev))
+    c12_ms = _time_ms(torch, lambda: ck.samples_mlmc_cuda(
+        streams12, N_MOMENTS, basis="legendre", consts=c_consts, device=dev))
     c_plain_ms = _time_ms(torch, lambda: ck.samples_mlmc_plain(
         streams, N_MOMENTS, basis="legendre", consts=c_consts), reps=3)
     d_ms = _time_ms(torch, lambda: cx.samples_ext_cuda(
@@ -590,13 +597,21 @@ def stored_path(torch, dev):
     n_out = len(streams.counts)
     c_bytes, c_flop = _stream_work(streams, got_c[0].n_valid.tolist(), N_MOMENTS, n_out)
     d_bytes, d_flop = _stream_work(streams, got_d.n_valid.tolist(), N_MOMENTS, n_out)
+    c12_bytes, c12_flop = _stream_work(streams12, got_c[2].n_valid.tolist(), N_MOMENTS,
+                                       len(streams12.counts))
     c_bound = _bound(c_bytes, c_flop, FP64_FLOP_PER_S)
+    c12_bound = _bound(c12_bytes, c12_flop, FP64_FLOP_PER_S)
     d_bound = _bound(d_bytes, d_flop, FP64_FLOP_PER_S)
     print("times (CUDA events, median) at the e2e streams (%d samples, 5 levels, "
           "R=25): kernel C %.3f ms vs plain %.3f ms (bound %.4f ms, %s: %.4g bytes, "
           "%.4g f64 flop); kernel D %.3f ms vs plain %.3f ms (bound %.4f ms, %s)"
           % (sum(streams.counts), c_ms, c_plain_ms, c_bound[0], c_bound[1], c_bytes,
              c_flop, d_ms, d_plain_ms, d_bound[0], d_bound[1]))
+    print("kernel C at its largest launch, the structured streams (%d samples, 12 x 5 "
+          "streams, R=25): %.3f ms (bound %.4f ms, %s: %.4g bytes, %.4g f64 flop), "
+          "beside %.3f ms at the e2e streams"
+          % (sum(streams12.counts), c12_ms, c12_bound[0], c12_bound[1], c12_bytes,
+             c12_flop, c_ms))
     return [
         {"name": "samples_mlmc", "route": "cuda",
          "source": "mlmc_tpu_torch/csrc/samples_mlmc.cu",
@@ -620,7 +635,7 @@ def main():
         _fail("no CUDA device (torch.cuda.is_available() is false)")
     csrc = os.path.join(HERE, "mlmc_tpu_torch", "csrc")
     if not all(os.path.isfile(os.path.join(csrc, f))
-               for f in ("synth_mlmc.cu", "samples_mlmc.cu")):
+               for f in ("synth_mlmc.cu", "samples_mlmc.cu", "moment_gram.cuh")):
         _fail("run from the root of a checkout: mlmc_tpu_torch/csrc is missing")
     sys.path.insert(0, HERE)
     from mlmc_tpu_torch.ops import _build

@@ -1,40 +1,49 @@
 // Stored-sample -> moment kernels for Hopper (sm_90a).
 //
-// Kernel C (samples_kernel<float> + samples_reduce, entry samples_mlmc_launch)
-// replaces the Pallas kernels _samples_mlmc_kernel and _samples_moment_kernel
-// (mlmc_tpu/ops/pallas_kernels.py:815 and :324, body _accumulate_qoi_chunk
-// :288): every (component, level) stream of stored fine/coarse QoIs in one
-// launch. Kernel D (samples_kernel<double>, entry samples_ext_launch)
-// replaces the double-float kernel _samples_kernel_ext
-// (mlmc_tpu/ops/pallas_extended.py:269, body _accumulate_qoi_chunk_ext :223):
-// the same function with the transform and the basis rows in f64. Hopper has
-// native f64, so none of the double-float mechanics come over.
+// Kernel C (samples_gram_kernel<NB> + gram_reduce, entry
+// samples_mlmc_launch) replaces the Pallas kernels _samples_mlmc_kernel and
+// _samples_moment_kernel (mlmc_tpu/ops/pallas_kernels.py:815 and :324,
+// body _accumulate_qoi_chunk :288): every (component, level) stream of
+// stored fine/coarse QoIs in one launch. Kernel D (samples_kernel<double>,
+// entry samples_ext_launch) replaces the double-float kernel
+// _samples_kernel_ext (mlmc_tpu/ops/pallas_extended.py:269, body
+// _accumulate_qoi_chunk_ext :223): the same function with the transform and
+// the basis rows in f64. Hopper has native f64, so none of the double-float
+// mechanics come over.
 //
-// Per sample of a stream, in the value type T (float for C, double for D):
-// t = (x - shift) * scale + offset for the fine QoI and, where the stream has
-// a coarse part, the coarse one; the sample is valid when every such t lies
-// in [lo, hi] (NaN fails every comparison); t := 0 where invalid and row 0
-// carries the valid mask, so invalid samples give zero rows. Rows are the
-// Legendre three-term recurrence, monomial powers, or Fourier
-// [1, cos, sin, ...] by angle addition, in the operation order of
-// pallas_kernels._basis_rows. The sums are f64: sum(phi_f - phi_c),
-// sum((phi_f - phi_c)^2) and the upper triangles of sum(phi_f phi_f^T) and
-// sum(phi_c phi_c^T) (phi_c = 0 on a stream without a coarse part), plus an
-// int64 valid count.
+// Per sample of a stream: t = (x - shift) * scale + offset for the fine QoI
+// and, where the stream has a coarse part, the coarse one; the sample is
+// valid when every such t lies in [lo, hi] (NaN fails every comparison);
+// t := 0 where invalid and row 0 carries the valid mask, so invalid samples
+// give zero rows. Rows are the Legendre three-term recurrence, monomial
+// powers, or Fourier [1, cos, sin, ...] by angle addition, in the operation
+// order of pallas_kernels._basis_rows (f32 for C, f64 for D). The sums are
+// f64: sum(phi_f - phi_c), sum((phi_f - phi_c)^2) and the Grams
+// sum(phi_f phi_f^T), sum(phi_c phi_c^T) (phi_c = 0 on a stream without a
+// coarse part), plus an int64 valid count.
 //
 // Bound on the card: per valid sample of a coarse-bearing stream, R^2 + 3R
-// f64 multiply-adds (two R(R+1)/2 outer products, the sums and squares),
-// about half that on a fine-only stream, against 4 or 8 bytes read; at
-// R = 25 that is ~700 f64 FMAs per 8 bytes, so the kernel is bound by the
-// f64 pipe and the shared-memory loads that feed it, not by device memory.
-// The design is kernel A's (csrc/synth_mlmc.cu): one block per span of one
-// stream from a block table over the streams' true counts (NaN padding
-// costs no work, and a zero-sample stream keeps one empty block so its
-// outputs are written as zeros); each 64-sample tile's rows go to shared
-// memory as f64, each thread owns a fixed set of accumulator slots in
-// registers and adds the tile's products into them with Kahan
-// compensation; one f64 partial per block and slot; a second kernel sums a
+// f64 multiply-adds, about half that on a fine-only stream, against 4 or 8
+// bytes read; at R = 25 that is ~700 f64 multiply-adds per 8 bytes, so the
+// kernels are bound by f64 arithmetic, not by device memory.
+//
+// Kernel C runs the Grams on the FP64 tensor cores (csrc/moment_gram.cuh:
+// DMMA m16n8k8 with register-level operand reuse, warp-private rows, a
+// flush every 64 samples; its note states the fragment layout and register
+// budget); a fine-only stream builds no coarse rows and runs no coarse
+// tiles, and each lane reads its next sample before the tiles of the
+// current chunk run. One block per 2^14-sample span of one stream from a
+// block table over the streams' true counts, coarse-bearing streams first
+// (NaN padding costs no work, and a zero-sample stream keeps one empty
+// block so its outputs are written as zeros); a second kernel sums a
 // stream's partials in block order. No atomics: results are deterministic.
+//
+// Kernel D keeps the slot loop: each 64-sample tile's rows go to shared
+// memory as f64, each thread owns a fixed set of accumulator slots in
+// registers and adds the tile's products into them with Kahan compensation;
+// its deviation bound against the strict f64 reference
+// (ops/precision.extended_error_bound) was derived for that summation
+// order.
 //
 // Build with --fmad=false and IEEE division: the transform must judge
 // validity exactly as the host does (estimator._harmonize_validity), and a
@@ -42,6 +51,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "moment_gram.cuh"
 
 namespace {
 
@@ -51,9 +62,7 @@ constexpr int kTile = kThreads / 2;   // samples per tile
 constexpr int kStride = kTile + 1;    // padded row stride (bank spread)
 constexpr int kMaxSlotsPerThread = 9; // ceil((2*32 + 2*528) / 128)
 
-__device__ __forceinline__ float dev_cos(float x) { return cosf(x); }
 __device__ __forceinline__ double dev_cos(double x) { return cos(x); }
-__device__ __forceinline__ float dev_sin(float x) { return sinf(x); }
 __device__ __forceinline__ double dev_sin(double x) { return sin(x); }
 
 // Basis rows of one sample into a shared-memory column (stride kStride):
@@ -303,30 +312,151 @@ int samples_launch(const float* fine, const float* coarse, const int64_t* blk,
   return static_cast<int>(cudaGetLastError());
 }
 
+// has_coarse of a stream
+struct StreamCoarse {
+  const int32_t* flags;
+  __device__ bool operator()(int stream) const { return flags[stream] != 0; }
+};
+
+// Per-sample input and rows of kernel C (see gram::block_span)
+struct SampleRows {
+  const float* fine;
+  const float* coarse;
+  int64_t off;  // offset of the block's first sample in fine / coarse
+  float scale, shift, offset, lo, hi;
+  int R, basis;
+
+  struct Input {
+    float f, c;
+  };
+
+  template <typename HCF>
+  __device__ __forceinline__ Input fetch(int64_t s, bool in_range, HCF) const {
+    Input in{0.0f, 0.0f};
+    if (in_range) {
+      in.f = fine[off + s];
+      if constexpr (HCF::value) in.c = coarse[off + s];
+    }
+    return in;
+  }
+
+  template <typename HCF>
+  __device__ __forceinline__ bool build(Input in, bool in_range, double* row_f,
+                                        double* row_c, HCF) const {
+    const float t_f = (in.f - shift) * scale + offset;
+    bool valid = in_range && (t_f >= lo) && (t_f <= hi);
+    float t_c = 0.0f;
+    if constexpr (HCF::value) {
+      t_c = (in.c - shift) * scale + offset;
+      valid = valid && (t_c >= lo) && (t_c <= hi);
+    }
+    const float v = valid ? 1.0f : 0.0f;
+    if constexpr (HCF::value) {
+      double* const out[2] = {row_f, row_c};
+      const float t[2] = {valid ? t_f : 0.0f, valid ? t_c : 0.0f};
+      gram::basis_rows<2>(out, t, v, R, basis);
+    } else {
+      double* const out[1] = {row_f};
+      const float t[1] = {valid ? t_f : 0.0f};
+      gram::basis_rows<1>(out, t, v, R, basis);
+    }
+    return valid;
+  }
+};
+
+// Kernel C: f32 transform and rows, Grams on the FP64 tensor cores. Block
+// table and stream_coarse as for samples_kernel; codes: the tile schedule
+// (moment_gram.cuh), n_codes = 2 n_tiles(NB).
+template <int NB>
+__global__ void __launch_bounds__(gram::kThreads)
+samples_gram_kernel(const float* __restrict__ fine,
+                    const float* __restrict__ coarse,
+                    const int64_t* __restrict__ blk,
+                    const int32_t* __restrict__ stream_coarse,
+                    const int32_t* __restrict__ codes, int n_codes,
+                    int n_moments, int basis, float scale, float shift,
+                    float offset, float lo, float hi,
+                    double* __restrict__ partial,
+                    long long* __restrict__ partial_n) {
+  const int64_t* b = blk + 4 * static_cast<int64_t>(blockIdx.x);
+  const int stream = static_cast<int>(b[0]);
+  const int64_t count = b[2];
+  const SampleRows rows{fine, coarse, b[3], scale, shift, offset, lo, hi,
+                        n_moments, basis};
+  double* out = partial + static_cast<int64_t>(blockIdx.x) * gram::n_out(n_codes);
+  if (stream_coarse[stream] != 0) {
+    gram::block_span<NB, true>(count, n_moments, codes, n_codes, rows, out,
+                               partial_n + blockIdx.x);
+  } else {
+    gram::block_span<NB, false>(count, n_moments, codes, n_codes, rows, out,
+                                partial_n + blockIdx.x);
+  }
+}
+
+template <int NB>
+cudaError_t launch_samples_gram(const float* fine, const float* coarse,
+                                const int64_t* blk, int n_blocks,
+                                const int32_t* stream_coarse,
+                                const int32_t* codes, int n_codes,
+                                int n_moments, int basis, float scale,
+                                float shift, float offset, float lo, float hi,
+                                double* partial, long long* partial_n,
+                                cudaStream_t s) {
+  const size_t smem = gram::smem_bytes(n_moments);
+  cudaError_t err = cudaFuncSetAttribute(
+      samples_gram_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  samples_gram_kernel<NB><<<n_blocks, gram::kThreads, smem, s>>>(
+      fine, coarse, blk, stream_coarse, codes, n_codes, n_moments, basis,
+      scale, shift, offset, lo, hi, partial, partial_n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Kernel C: f32 transform and rows (the constants are f32 values passed
-// as double), f64 sums. Returns the CUDA error code of the launches.
+// as double), f64 sums. `codes` is the tile schedule of
+// cuda_kernels._tile_schedule(n_moments) (n_codes entries); `partial` holds
+// n_blocks x gram::n_out(n_codes) doubles. Returns the CUDA error code of
+// the launches.
 int samples_mlmc_launch(const float* fine, const float* coarse,
                         const int64_t* blk, int n_blocks,
                         const int32_t* stream_coarse,
                         const int64_t* stream_blocks, int n_streams,
-                        const int32_t* slot_codes, int n_slots, int n_moments,
+                        const int32_t* codes, int n_codes, int n_moments,
                         int basis, double scale, double shift, double offset,
                         double lo, double hi, double* partial,
                         long long* partial_n, double* sums, double* sums2,
                         double* cov_f, double* cov_c, long long* n_valid,
                         void* stream) {
-  return samples_launch<float>(fine, coarse, blk, n_blocks, stream_coarse,
-                               stream_blocks, n_streams, slot_codes, n_slots,
-                               n_moments, basis, scale, shift, offset, lo, hi,
-                               partial, partial_n, sums, sums2, cov_f, cov_c,
-                               n_valid, stream);
+  if (n_moments < 1 || n_moments > gram::kRPad) return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = (n_moments + 7) / 8;
+  if (n_codes != 2 * gram::n_tiles(nb)) return static_cast<int>(cudaErrorInvalidValue);
+  if (basis < 0 || basis > 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_blocks <= 0 || n_streams <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float f[5] = {static_cast<float>(scale), static_cast<float>(shift),
+                      static_cast<float>(offset), static_cast<float>(lo),
+                      static_cast<float>(hi)};
+  cudaError_t err;
+  switch (nb) {
+    case 1: err = launch_samples_gram<1>(fine, coarse, blk, n_blocks, stream_coarse, codes, n_codes, n_moments, basis, f[0], f[1], f[2], f[3], f[4], partial, partial_n, s); break;
+    case 2: err = launch_samples_gram<2>(fine, coarse, blk, n_blocks, stream_coarse, codes, n_codes, n_moments, basis, f[0], f[1], f[2], f[3], f[4], partial, partial_n, s); break;
+    case 3: err = launch_samples_gram<3>(fine, coarse, blk, n_blocks, stream_coarse, codes, n_codes, n_moments, basis, f[0], f[1], f[2], f[3], f[4], partial, partial_n, s); break;
+    default: err = launch_samples_gram<4>(fine, coarse, blk, n_blocks, stream_coarse, codes, n_codes, n_moments, basis, f[0], f[1], f[2], f[3], f[4], partial, partial_n, s); break;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(gram::launch_reduce(
+      partial, partial_n, stream_blocks, n_streams,
+      StreamCoarse{stream_coarse}, codes, n_codes, n_moments, sums, sums2,
+      cov_f, cov_c, n_valid, s));
 }
 
-// Kernel D: the same with the transform and rows in f64.
+// Kernel D: the same function with the transform and rows in f64, on the
+// slot loop of samples_kernel<double>.
 int samples_ext_launch(const float* fine, const float* coarse,
                        const int64_t* blk, int n_blocks,
                        const int32_t* stream_coarse,

@@ -3,9 +3,10 @@
 Each source ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded through ctypes. A library is built
 at first use into ``mlmc_tpu_torch/_build/`` (ignored by git), named by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. ``build_all`` starts one ``nvcc`` per source, all
-at once, and waits for them. Nothing here runs at import time.
+hash of the source, every header ``csrc/*.cuh`` and the flags, so an
+edited source or header rebuilds and an unchanged one is reused.
+``build_all`` starts one ``nvcc`` per source, all at once, and waits for
+them. Nothing here runs at import time.
 """
 import ctypes
 import functools
@@ -68,10 +69,12 @@ def find_nvcc():
 
 
 def library_path(name):
-    """Where the library of ``csrc/<name>.cu`` is built for this source
-    and these flags."""
-    source = SOURCE_DIR / (name + ".cu")
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where the library of ``csrc/<name>.cu`` is built for this source,
+    the headers it may include (every ``csrc/*.cuh``) and these flags."""
+    digest = hashlib.sha256((SOURCE_DIR / (name + ".cu")).read_bytes())
+    for header in sorted(SOURCE_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / ("lib%s_%s.so" % (name, digest.hexdigest()[:16]))
 
 

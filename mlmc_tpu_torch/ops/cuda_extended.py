@@ -38,8 +38,9 @@ def samples_ext_cuda(streams, n_moments, *, basis, consts, device):
     :param consts: f64 ``transform_constants``
     :return: stacked SynthMomentResult [S, ...] (float64, int64 counts)
     """
+    codes = ck._slot_codes(n_moments)
     out = ck._samples_launch("samples_ext_launch", streams, n_moments, basis,
-                             consts, device)
+                             consts, device, codes, codes.shape[0])
     samples_ext_cuda.launches += 1
     return out
 

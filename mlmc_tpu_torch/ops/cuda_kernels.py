@@ -260,7 +260,7 @@ def synth_mlmc_plain(x_levels, seed, n_per_level, fine_steps, coarse_steps,
 # CUDA kernel wrappers
 # --------------------------------------------------------------------- #
 def _slot_codes(n_moments):
-    """Accumulator slots of kernel A: sums, sums2, then the upper
+    """Accumulator slots of kernel D: sums, sums2, then the upper
     triangles of cov_f and cov_c, each coded mode << 16 | a << 8 | b."""
     R = n_moments
     codes = [(0 << 16) | (r << 8) | r for r in range(R)]
@@ -271,15 +271,39 @@ def _slot_codes(n_moments):
     return np.asarray(codes, dtype=np.int32)
 
 
-def _block_tables(n_per_level, x_offsets, span=SPAN):
+def _tile_schedule(n_moments, has_coarse=True):
+    """Output tiles of kernels A and C (csrc/moment_gram.cuh): the 16x8
+    tiles (P, J), 2P <= J < ceil(R / 8), that cover the upper triangle of
+    each Gram, coded gram << 16 | P << 8 | J (gram 0 fine, 1 coarse), the
+    fine Gram's first. A fine-only schedule is the prefix of the full one:
+    a block without a coarse part runs only those tiles. The reduction
+    writes entry (i, j) of tile (P, J) to cov[a, b] and cov[b, a],
+    a = 16P + i, b = 8J + j, where a <= b < R."""
+    nb = -(-int(n_moments) // 8)
+    tiles = [(p, j) for p in range((nb + 1) // 2) for j in range(2 * p, nb)]
+    return np.asarray([(g << 16) | (p << 8) | j
+                       for g in range(2 if has_coarse else 1)
+                       for p, j in tiles], dtype=np.int32)
+
+
+def _gram_partial_size(codes):
+    """Doubles of one block's partial row: 128 per scheduled tile, then
+    sum(d) and sum(d^2) padded to R_PAD each."""
+    return codes.shape[0] * 128 + 2 * R_PAD
+
+
+def _block_tables(n_per_level, x_offsets, has_coarse, span=SPAN):
     """Per-block (level, start, count, x offset) and per-level (first
     block, block count); a zero-sample level keeps one empty block, so
-    its outputs are written as zeros."""
-    blocks, lvl_blocks = [], []
-    for lvl, n in enumerate(n_per_level):
-        n = int(n)
+    its outputs are written as zeros. The blocks of levels with a coarse
+    part come first: they cost about twice as much as fine-only blocks,
+    and started last they would leave the card's last wave half empty."""
+    blocks, lvl_blocks = [], [None] * len(n_per_level)
+    order = sorted(range(len(n_per_level)), key=lambda lvl: not has_coarse[lvl])
+    for lvl in order:
+        n = int(n_per_level[lvl])
         n_blk = max(-(-n // span), 1)
-        lvl_blocks.append((len(blocks), n_blk))
+        lvl_blocks[lvl] = (len(blocks), n_blk)
         for b in range(n_blk):
             start = b * span
             blocks.append((lvl, start, max(min(span, n - start), 0),
@@ -313,11 +337,11 @@ def synth_mlmc_cuda(x, seed, n_per_level, fine_steps, coarse_steps,
             raise ValueError("x holds %d samples, levels need %d"
                              % (x.numel(), sum(int(n) for n in n_per_level)))
     offsets = np.concatenate([[0], np.cumsum([int(n) for n in n_per_level])])
-    blocks, lvl_blocks = _block_tables(n_per_level, offsets[:-1])
+    blocks, lvl_blocks = _block_tables(n_per_level, offsets[:-1], has_coarse)
     lvl = np.asarray([(_f32(f), _f32(c), 1.0 if h else 0.0) for f, c, h in
                       zip(fine_steps, coarse_steps, has_coarse)],
                      dtype=np.float32)
-    codes = _slot_codes(R)
+    codes = _tile_schedule(R)
     t_scale, t_shift = _domain_map(domain)
     k0, k1 = _key_words(seed)
 
@@ -326,8 +350,9 @@ def synth_mlmc_cuda(x, seed, n_per_level, fine_steps, coarse_steps,
 
     blk_d, lvl_d, lb_d, codes_d = (dev(blocks), dev(lvl), dev(lvl_blocks),
                                    dev(codes))
-    n_blk, n_slots = blocks.shape[0], codes.shape[0]
-    partial = torch.empty(n_blk, n_slots, dtype=torch.float64, device=device)
+    n_blk, n_codes = blocks.shape[0], codes.shape[0]
+    partial = torch.empty(n_blk, _gram_partial_size(codes),
+                          dtype=torch.float64, device=device)
     partial_n = torch.empty(n_blk, dtype=torch.int64, device=device)
     sums = torch.empty(L, R, dtype=torch.float64, device=device)
     sums2 = torch.empty(L, R, dtype=torch.float64, device=device)
@@ -339,7 +364,7 @@ def synth_mlmc_cuda(x, seed, n_per_level, fine_steps, coarse_steps,
         stream = torch.cuda.current_stream(device).cuda_stream
         _check(lib.synth_mlmc_launch(
             None if x is None else x.data_ptr(), blk_d.data_ptr(), n_blk,
-            lvl_d.data_ptr(), lb_d.data_ptr(), L, codes_d.data_ptr(), n_slots,
+            lvl_d.data_ptr(), lb_d.data_ptr(), L, codes_d.data_ptr(), n_codes,
             R, t_scale, t_shift, k0, k1, partial.data_ptr(),
             partial_n.data_ptr(), sums.data_ptr(), sums2.data_ptr(),
             cov_f.data_ptr(), cov_c.data_ptr(), n_valid.data_ptr(), stream),
@@ -469,8 +494,13 @@ def samples_plain(streams, n_moments, *, basis, consts, f64=False,
     return out
 
 
-def _samples_launch(fn_name, streams, n_moments, basis, consts, device):
-    """Launch kernel C or D (``fn_name``) and its per-stream reduction."""
+def _samples_launch(fn_name, streams, n_moments, basis, consts, device,
+                    codes, partial_size):
+    """Launch kernel C or D (``fn_name``) and its per-stream reduction.
+
+    :param codes: kernel C's tile schedule or kernel D's slot codes
+    :param partial_size: doubles of one block's partial row
+    """
     device = cuda_device(device)
     lib = load_library("samples_mlmc")
     for x in (streams.fine, streams.coarse):
@@ -486,8 +516,7 @@ def _samples_launch(fn_name, streams, n_moments, basis, consts, device):
             for o, n in zip(streams.offsets, streams.counts)):
         raise ValueError("stream offsets/counts exceed the packed buffers")
     blocks, stream_blocks = _block_tables(streams.counts, streams.offsets,
-                                          span=SAMPLES_SPAN)
-    codes = _slot_codes(R)
+                                          streams.has_coarse, span=SAMPLES_SPAN)
     hasc = np.asarray([1 if h else 0 for h in streams.has_coarse], np.int32)
 
     def dev(a):
@@ -495,8 +524,9 @@ def _samples_launch(fn_name, streams, n_moments, basis, consts, device):
 
     blk_d, sb_d, hasc_d, codes_d = (dev(blocks), dev(stream_blocks),
                                     dev(hasc), dev(codes))
-    n_blk, n_slots = blocks.shape[0], codes.shape[0]
-    partial = torch.empty(n_blk, n_slots, dtype=torch.float64, device=device)
+    n_blk, n_codes = blocks.shape[0], codes.shape[0]
+    partial = torch.empty(n_blk, partial_size, dtype=torch.float64,
+                          device=device)
     partial_n = torch.empty(n_blk, dtype=torch.int64, device=device)
     out = SynthMomentResult(
         torch.empty(S, R, dtype=torch.float64, device=device),
@@ -509,7 +539,7 @@ def _samples_launch(fn_name, streams, n_moments, basis, consts, device):
         _check(getattr(lib, fn_name)(
             streams.fine.data_ptr(), streams.coarse.data_ptr(),
             blk_d.data_ptr(), n_blk, hasc_d.data_ptr(), sb_d.data_ptr(), S,
-            codes_d.data_ptr(), n_slots, R, BASES[basis], *consts,
+            codes_d.data_ptr(), n_codes, R, BASES[basis], *consts,
             partial.data_ptr(), partial_n.data_ptr(),
             *(field.data_ptr() for field in out), stream), fn_name)
     return out
@@ -521,8 +551,9 @@ def samples_mlmc_cuda(streams, n_moments, *, basis, consts, device):
     :param consts: f32 ``transform_constants``
     :return: stacked SynthMomentResult [S, ...] (float64, int64 counts)
     """
+    codes = _tile_schedule(n_moments)
     out = _samples_launch("samples_mlmc_launch", streams, n_moments, basis,
-                          consts, device)
+                          consts, device, codes, _gram_partial_size(codes))
     samples_mlmc_cuda.launches += 1
     return out
 

@@ -56,7 +56,7 @@ def _median_ms(fn, reps=5):
 
 
 def _group(name):
-    for key in ("synth_mlmc_kernel", "synth_mlmc_reduce", "Memcpy HtoD"):
+    for key in ("synth_mlmc_kernel", "gram_reduce", "Memcpy HtoD"):
         if key in name:
             return key
     return name

@@ -241,22 +241,114 @@ def test_synth_normals_index_mapping_and_statistics():
 
 
 # --------------------------------------------------------------------- #
+# the Gram tile schedule of kernels A and C (host tables)
+# --------------------------------------------------------------------- #
+def _scheduled_entries(codes, R):
+    """(gram, a, b) of every partial entry the reduction writes: entry
+    (i, j) of the 16x8 tile (P, J) at a = 16P + i, b = 8J + j, where
+    a <= b < R."""
+    out = []
+    for code in codes.tolist():
+        gram, P, J = code >> 16, (code >> 8) & 0xFF, code & 0xFF
+        assert 2 * P <= J
+        out += [(gram, 16 * P + i, 8 * J + j) for i in range(16) for j in range(8)
+                if 16 * P + i <= 8 * J + j < R]
+    return out
+
+
+@pytest.mark.parametrize("has_coarse", [True, False])
+def test_tile_schedule_covers_each_entry_once(has_coarse):
+    for R in range(1, ck.R_PAD + 1):
+        codes = ck._tile_schedule(R, has_coarse)
+        grams = (0, 1) if has_coarse else (0,)
+        want = sorted((g, a, b) for g in grams for a in range(R) for b in range(a, R))
+        got = _scheduled_entries(codes, R)
+        assert len(got) == len(set(got)), R      # each entry once
+        assert sorted(got) == want, R           # every needed entry
+        nb = -(-R // 8)
+        n_tiles = sum(nb - 2 * p for p in range((nb + 1) // 2))
+        assert codes.shape[0] == len(grams) * n_tiles
+        assert ck._gram_partial_size(codes) == codes.shape[0] * 128 + 2 * ck.R_PAD
+        if not has_coarse:
+            assert not np.any(codes >> 16)       # no coarse tile
+            full = ck._tile_schedule(R, True)
+            np.testing.assert_array_equal(full[:codes.shape[0]], codes)
+
+
+def test_block_tables_cover_each_sample_once_coarse_levels_first():
+    counts, offsets = [70_000, 5, 0, 131_072], [0, 70_000, 70_005, 70_005]
+    hasc = [False, True, True, True]
+    blocks, lvl_blocks = ck._block_tables(counts, offsets, hasc, span=1 << 15)
+    for lvl, (first, n_blk) in enumerate(lvl_blocks.tolist()):
+        mine = blocks[first:first + n_blk]
+        assert np.all(mine[:, 0] == lvl)               # contiguous per level
+        assert mine[:, 1].tolist() == [b * (1 << 15) for b in range(n_blk)]
+        assert int(mine[:, 2].sum()) == counts[lvl]    # every sample once
+        np.testing.assert_array_equal(mine[:, 3], offsets[lvl] + mine[:, 1])
+    assert lvl_blocks[2].tolist()[1] == 1             # zero-sample level: one empty block
+    first_fine = int(lvl_blocks[0][0])
+    assert np.all(blocks[:first_fine, 0] != 0)         # coarse levels' blocks first
+
+
+# --------------------------------------------------------------------- #
 # CUDA kernels vs their plain versions (run on a machine with a GPU)
 # --------------------------------------------------------------------- #
+#: moment counts that exercise every tile count (R <= 8, 16, 24, 32) and
+#: the padded edges
+CUDA_R = [1, 2, 8, 24, 25, 32]
+#: per-level counts: a fine-only level 0 next to coarse levels, one or
+#: several 32-sample chunks and 64-sample flushes, a zero-sample level,
+#: a single sample, and more than one block (2^16 samples per block)
+CUDA_COUNTS = [(1 << 14) + 1, 65, 0, 63, 1, (1 << 16) + 3]
+CUDA_STEPS = STEPS + [STEPS[-1] / 2]
+
+
+def _noise_counts(counts, seed):
+    """Per-level f32 normals of the given sizes, some far outside the domain."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in counts:
+        x = rng.normal(size=n) * 1.3
+        x[5::37] = 6.5      # the first sample stays in the domain
+        out.append(x.astype(np.float32))
+    return out
+
+
+def _assert_vs_plain(got, plain, s_abs, n_levels):
+    for lvl in range(n_levels):
+        assert int(got[lvl].n_valid) == int(plain.n_valid[lvl]), lvl
+        for name, _ in FIELDS:
+            err = (getattr(got[lvl], name) - getattr(plain, name)[lvl]).abs()
+            scale = getattr(s_abs, name)[lvl].clamp(min=1.0)
+            assert bool(torch.all(err <= 1e-12 * scale)), (lvl, name)
+
+
+def _assert_bit_identical(a, b):
+    for ra, rb in zip(a, b):
+        for fa, fb in zip(ra, rb):
+            assert torch.equal(fa, fb)
+
+
 @pytest.mark.cuda
-def test_cuda_memory_mode_vs_plain(cuda_device):
-    xs = [torch.from_numpy(x).to(cuda_device) for x in _level_noise(n=1 << 17)]
+@pytest.mark.parametrize("R", CUDA_R)
+def test_cuda_memory_mode_vs_plain(cuda_device, R):
+    xs = [torch.from_numpy(x).to(cuda_device)
+          for x in _noise_counts(CUDA_COUNTS, seed=R)]
     before = ck.synth_mlmc_cuda.launches
-    got = ck.synth_mlmc_pipeline_from_noise(xs, 25, STEPS, domain=DOMAIN)
+    got = ck.synth_mlmc_pipeline_from_noise(xs, R, CUDA_STEPS, domain=DOMAIN)
     assert ck.synth_mlmc_cuda.launches == before + 1
-    plain = ck.synth_mlmc_plain(xs, 0, [x.numel() for x in xs], *ck._ladder(STEPS),
-                                25, domain=DOMAIN, device=cuda_device)
-    for lvl, g in enumerate(got):
-        ref = _f64_ref(xs[lvl].cpu().numpy(), lvl, 25, precision=port_precision)
-        assert int(g.n_valid) == int(plain.n_valid[lvl]) == ref["n_valid"]
-        for name, abs_name in FIELDS:
-            err = (getattr(g, name) - getattr(plain, name)[lvl]).abs().cpu().numpy()
-            assert np.all(err <= 1e-12 * np.maximum(ref[abs_name], 1.0)), name
+    args = (xs, 0, CUDA_COUNTS, *ck._ladder(CUDA_STEPS), R)
+    plain, s_abs = (ck.synth_mlmc_plain(*args, domain=DOMAIN, device=cuda_device,
+                                        absolute=a) for a in (False, True))
+    _assert_vs_plain(got, plain, s_abs, len(CUDA_COUNTS))
+    for lvl in range(len(STEPS)):   # the levels whose steps _f64_ref knows
+        if CUDA_COUNTS[lvl]:
+            ref = _f64_ref(xs[lvl].cpu().numpy(), lvl, R, precision=port_precision)
+            assert int(got[lvl].n_valid) == ref["n_valid"], lvl
+    assert not torch.any(got[0].cov_coarse != 0)          # fine-only level
+    assert all(not torch.any(f != 0) for f in got[2])     # zero-sample level
+    _assert_bit_identical(got, ck.synth_mlmc_pipeline_from_noise(
+        xs, R, CUDA_STEPS, domain=DOMAIN))
 
 
 @pytest.mark.cuda
@@ -267,15 +359,16 @@ def test_cuda_normals_vs_plain(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_rng_mode_vs_plain(cuda_device):
-    n = [1 << 18, 100_003, 0, 7, 1000]
-    got = ck.synth_mlmc_pipeline(5, 25, n, STEPS, domain=DOMAIN, device=cuda_device)
-    plain, s_abs = (ck.synth_mlmc_plain(None, 5, n, *ck._ladder(STEPS), 25,
+@pytest.mark.parametrize("R", CUDA_R)
+def test_cuda_rng_mode_vs_plain(cuda_device, R):
+    n = CUDA_COUNTS[:-1] + [1 << 18]
+    got = ck.synth_mlmc_pipeline(5, R, n, CUDA_STEPS, domain=DOMAIN,
+                                 device=cuda_device)
+    plain, s_abs = (ck.synth_mlmc_plain(None, 5, n, *ck._ladder(CUDA_STEPS), R,
                                         domain=DOMAIN, device=cuda_device,
                                         absolute=a) for a in (False, True))
-    for lvl, g in enumerate(got):
-        assert int(g.n_valid) == int(plain.n_valid[lvl])
-        for name, _ in FIELDS:
-            err = (getattr(g, name) - getattr(plain, name)[lvl]).abs()
-            scale = getattr(s_abs, name)[lvl].clamp(min=1.0)
-            assert bool(torch.all(err <= 1e-12 * scale)), name
+    _assert_vs_plain(got, plain, s_abs, len(n))
+    assert not torch.any(got[0].cov_coarse != 0)
+    assert all(not torch.any(f != 0) for f in got[2])
+    _assert_bit_identical(got, ck.synth_mlmc_pipeline(
+        5, R, n, CUDA_STEPS, domain=DOMAIN, device=cuda_device))

@@ -285,26 +285,39 @@ def test_extended_bound_is_inside_the_contract():
 # --------------------------------------------------------------------- #
 # CUDA kernels vs their plain versions (run on a machine with a GPU)
 # --------------------------------------------------------------------- #
-def _device_streams(device, sizes=(1 << 17, 100_003, 0, 7, 40_000)):
+def _device_streams(device, sizes=(1 << 17, 100_003, 0, 7, 40_000),
+                    first_valid=False):
+    """Packed streams on ``device``, every odd one with a coarse part;
+    ``first_valid`` replaces each stream's first sample (NaN in ``_qoi``)
+    with a valid one, so a one-sample stream counts one."""
     fine, coarse, hasc = [], [], []
     for i, n in enumerate(sizes):
         f, c = _qoi(n, seed=50 + i)
+        if first_valid and n:
+            f[0], c[0] = 0.3, 0.31
         fine.append(torch.from_numpy(f).to(device))
         coarse.append(torch.from_numpy(c).to(device) if i % 2 else None)
         hasc.append(i % 2 == 1)
     return ck.pack_streams(fine, coarse, hasc)
 
 
+#: kernel C's streams: fine-only (even) next to coarse (odd) streams, one
+#: or several 32-sample chunks and 64-sample flushes, a zero-sample stream,
+#: a single sample, and more than one block (2^14 samples per block)
+C_SIZES = ((1 << 14) + 1, 65, 0, 63, 1, 1 << 17)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 2, 8, 24, 25, 32])
 @pytest.mark.parametrize("basis", ["legendre", "monomial", "fourier"])
-def test_cuda_kernel_c_vs_plain(cuda_device, basis):
-    streams = _device_streams(cuda_device)
+def test_cuda_kernel_c_vs_plain(cuda_device, basis, R):
+    streams = _device_streams(cuda_device, sizes=C_SIZES, first_valid=True)
     consts = ck.transform_constants(DOMAIN, REF[basis])
     before = ck.samples_mlmc_cuda.launches
-    got = ck.samples_moments(streams, 25, domain=DOMAIN, ref_domain=REF[basis],
+    got = ck.samples_moments(streams, R, domain=DOMAIN, ref_domain=REF[basis],
                              basis=basis)
     assert ck.samples_mlmc_cuda.launches == before + 1
-    plain, s_abs = (ck.samples_mlmc_plain(streams, 25, basis=basis, consts=consts,
+    plain, s_abs = (ck.samples_mlmc_plain(streams, R, basis=basis, consts=consts,
                                           absolute=a) for a in (False, True))
     assert torch.equal(got.n_valid, plain.n_valid)
     rtol = 1e-12 if basis != "fourier" else float(
@@ -313,7 +326,11 @@ def test_cuda_kernel_c_vs_plain(cuda_device, basis):
         err = (getattr(got, name) - getattr(plain, name)).abs()
         assert bool(torch.all(err <= rtol * getattr(s_abs, name).clamp(min=1.0))), name
     assert not torch.any(got.cov_coarse[0] != 0)   # no coarse part
-    assert not torch.any(got.sums[2] != 0)          # zero-sample stream
+    assert all(not torch.any(f[2] != 0) for f in got)   # zero-sample stream
+    again = ck.samples_moments(streams, R, domain=DOMAIN, ref_domain=REF[basis],
+                               basis=basis)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)                    # bit-identical launches
 
 
 @pytest.mark.cuda
