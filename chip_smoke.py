@@ -21,16 +21,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
       maxent density;
    b. the structured fast tier (12 components in one kernel C launch),
       which must report one valid count per level for all components;
-   c. the f64 tier (kernel D) on the same storage;
+   c. the f64 tier (kernel D) on the same storage: the scalar quantity,
+      then its largest launch, the structured quantity's 12 x 5 streams in
+      one launch, held against the fast tier of the same estimate;
    d. the Quantity DAG of BASELINE config 4 on 2.75e6 samples: the generic
       tier and the packed tier (kernel C) agree within the f32 bound;
    fails unless kernels C and D were launched;
 5. holds each kernel's outputs at its path's shapes against its plain
    version (kernel C at the e2e, config-4 and structured streams; kernel D
-   also against an exact f64 summation);
+   at the e2e and structured streams, also against an exact f64 summation,
+   and two launches of it bit for bit against each other);
 6. times each kernel and its plain version at those shapes and computes
-   each kernel's bound from this run's inputs; kernel C also at its
-   largest launch, the structured tier's 12 x 5 streams.
+   each kernel's bound from this run's inputs; kernels C and D also at
+   their largest launch, the structured tier's 12 x 5 streams.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout. The last line is {"ok": true, "device": {...}}; the line before
@@ -495,7 +498,8 @@ def stored_path(torch, dev):
     from mlmc_tpu_torch.ops import cuda_extended as cx
     from mlmc_tpu_torch.ops import cuda_kernels as ck
     from mlmc_tpu_torch.ops.precision import (
-        check_extended_against_f64, extended_error_bound,
+        accumulation_error_bound, check_extended_against_f64,
+        extended_bound_constant, extended_error_bound,
         f64_reference_moments_strict)
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -527,6 +531,27 @@ def stored_path(torch, dev):
                      "extended estimate")
             print("f64 tier: max |extended - fast| mean %.3g"
                   % float(np.max(np.abs(ext_mean - fast_mean))))
+            # kernel D's largest launch: every stream of the structured quantity
+            before = cx.samples_ext_cuda.launches
+            ext_mean12, ext_var12 = est12.estimate_moments_extended()
+            _require(cx.samples_ext_cuda.launches == before + 1,
+                     "structured f64 tier took more than one launch")
+            _require(ext_mean12.shape == (12, N_MOMENTS) and np.all(ext_mean12[:, 0] == 1.0)
+                     and np.all(np.isfinite(ext_var12)), "structured f64-tier estimate")
+            # f32 rows against f64 rows: per level at most the f32 tier's
+            # bound of S_abs / n <= 2 (|phi_f - phi_c| <= 2 for Legendre)
+            tol12 = len(LEVEL_STEPS) * float(accumulation_error_bound(2.0))
+            diff12 = float(np.max(np.abs(ext_mean12 - mean12)))
+            _require(diff12 <= tol12, "structured f64 tier vs fast tier: max |mean "
+                     "diff| %.3g > %.3g" % (diff12, tol12))
+            ext12 = est12._extended_results(mfn, list(range(12)))
+            per_comp = np.array([[r.n_valid for r in ext12[m]] for m in range(12)])
+            _require(np.all(per_comp == per_comp[0]) and per_comp[0].tolist() == ns12.tolist(),
+                     "structured f64 streams disagree in n_valid: %s" % per_comp.tolist())
+            print("structured f64 tier: 12 components x 5 levels in one kernel D launch; "
+                  "n_valid per level %s on every component, as the fast tier's; max "
+                  "|extended - fast| mean %.3g (tol %.3g: the f32 tier's bound per level)"
+                  % (per_comp[0].tolist(), diff12, tol12))
         with Phase(torch, "stored: config 4 DAG"):
             c4_est, c4_mfn = config4(dev, mt)
     counts = {**ck.launch_counts(), **cx.launch_counts()}
@@ -557,14 +582,21 @@ def stored_path(torch, dev):
             print("%s vs plain: n_valid %s equal; max |kernel-plain| %.3g, / S_abs "
                   "%.3g (tol 1e-12)" % (what, got.n_valid.tolist(), err, rel))
         d_consts = ck.transform_constants(DOMAIN, f64=True)
-        got_d = cx.samples_ext_cuda(streams, N_MOMENTS, basis="legendre",
-                                    consts=d_consts, device=dev)
-        plain_d, s_abs_d = (cx.samples_ext_plain(streams, N_MOMENTS, basis="legendre",
+        err_d, got_d = 0.0, []
+        for what, st_ in (("kernel D at the e2e streams", streams),
+                          ("kernel D at the structured streams", streams12)):
+            got, again = (cx.samples_ext_cuda(st_, N_MOMENTS, basis="legendre",
+                                              consts=d_consts, device=dev) for _ in range(2))
+            _require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                     "%s: two launches differ" % what)
+            plain, s_abs = (cx.samples_ext_plain(st_, N_MOMENTS, basis="legendre",
                                                  consts=d_consts, absolute=a)
                             for a in (False, True))
-        err_d, rel_d = _compare(torch, got_d, plain_d, s_abs_d, "kernel D at the e2e streams")
-        print("kernel D at the e2e streams vs plain: n_valid equal; max |kernel-plain| "
-              "%.3g, / S_abs %.3g (tol 1e-12)" % (err_d, rel_d))
+            err, rel = _compare(torch, got, plain, s_abs, what)
+            err_d = max(err_d, err)
+            got_d.append(got)
+            print("%s vs plain: n_valid equal; two launches bit-identical; max "
+                  "|kernel-plain| %.3g, / S_abs %.3g (tol 1e-12)" % (what, err, rel))
         # exact f64 summation on the host, with the strict reference's transform
         sym = cx.samples_ext_cuda(streams, N_MOMENTS, basis="legendre",
                                   consts=ck.transform_constants(DOMAIN, f64=True,
@@ -581,7 +613,8 @@ def stored_path(torch, dev):
             worst = max(worst, max(report.values()))
         print("kernel D vs the exact f64 summation (strict reference) on the e2e "
               "streams: max deviation / S_abs %.3g (bound extended_error_bound = "
-              "%.3g*S_abs)" % (worst, float(extended_error_bound(1.0))))
+              "%.3g*S_abs = %d roundings x eps64)"
+              % (worst, float(extended_error_bound(1.0)), extended_bound_constant()))
 
     # ---- times and bounds at the path's shapes ------------------------ #
     c_ms = _time_ms(torch, lambda: ck.samples_mlmc_cuda(
@@ -592,26 +625,32 @@ def stored_path(torch, dev):
         streams, N_MOMENTS, basis="legendre", consts=c_consts), reps=3)
     d_ms = _time_ms(torch, lambda: cx.samples_ext_cuda(
         streams, N_MOMENTS, basis="legendre", consts=d_consts, device=dev))
+    d12_ms = _time_ms(torch, lambda: cx.samples_ext_cuda(
+        streams12, N_MOMENTS, basis="legendre", consts=d_consts, device=dev))
     d_plain_ms = _time_ms(torch, lambda: cx.samples_ext_plain(
         streams, N_MOMENTS, basis="legendre", consts=d_consts), reps=3)
     n_out = len(streams.counts)
     c_bytes, c_flop = _stream_work(streams, got_c[0].n_valid.tolist(), N_MOMENTS, n_out)
-    d_bytes, d_flop = _stream_work(streams, got_d.n_valid.tolist(), N_MOMENTS, n_out)
+    d_bytes, d_flop = _stream_work(streams, got_d[0].n_valid.tolist(), N_MOMENTS, n_out)
+    d12_bytes, d12_flop = _stream_work(streams12, got_d[1].n_valid.tolist(), N_MOMENTS,
+                                       len(streams12.counts))
     c12_bytes, c12_flop = _stream_work(streams12, got_c[2].n_valid.tolist(), N_MOMENTS,
                                        len(streams12.counts))
     c_bound = _bound(c_bytes, c_flop, FP64_FLOP_PER_S)
     c12_bound = _bound(c12_bytes, c12_flop, FP64_FLOP_PER_S)
     d_bound = _bound(d_bytes, d_flop, FP64_FLOP_PER_S)
+    d12_bound = _bound(d12_bytes, d12_flop, FP64_FLOP_PER_S)
     print("times (CUDA events, median) at the e2e streams (%d samples, 5 levels, "
           "R=25): kernel C %.3f ms vs plain %.3f ms (bound %.4f ms, %s: %.4g bytes, "
           "%.4g f64 flop); kernel D %.3f ms vs plain %.3f ms (bound %.4f ms, %s)"
           % (sum(streams.counts), c_ms, c_plain_ms, c_bound[0], c_bound[1], c_bytes,
              c_flop, d_ms, d_plain_ms, d_bound[0], d_bound[1]))
-    print("kernel C at its largest launch, the structured streams (%d samples, 12 x 5 "
-          "streams, R=25): %.3f ms (bound %.4f ms, %s: %.4g bytes, %.4g f64 flop), "
-          "beside %.3f ms at the e2e streams"
+    print("kernels C and D at their largest launch, the structured streams (%d samples, "
+          "12 x 5 streams, R=25): kernel C %.3f ms (bound %.4f ms, %s: %.4g bytes, %.4g "
+          "f64 flop), beside %.3f ms at the e2e streams; kernel D %.3f ms (bound %.4f "
+          "ms, %s), beside %.3f ms at the e2e streams"
           % (sum(streams12.counts), c12_ms, c12_bound[0], c12_bound[1], c12_bytes,
-             c12_flop, c_ms))
+             c12_flop, c_ms, d12_ms, d12_bound[0], d12_bound[1], d_ms))
     return [
         {"name": "samples_mlmc", "route": "cuda",
          "source": "mlmc_tpu_torch/csrc/samples_mlmc.cu",

@@ -1,8 +1,8 @@
 // Moment Gram products on the FP64 tensor cores (sm_90a): the device part
-// shared by kernel A (csrc/synth_mlmc.cu) and kernel C
+// shared by kernel A (csrc/synth_mlmc.cu) and kernels C and D
 // (csrc/samples_mlmc.cu).
 //
-// Both kernels reduce per-sample basis rows phi_f, phi_c in [R], R <= 32,
+// The kernels reduce per-sample basis rows phi_f, phi_c in [R], R <= 32,
 // into five accumulators per level or stream: sum(phi_f - phi_c),
 // sum((phi_f - phi_c)^2), the Grams sum(phi_f phi_f^T), sum(phi_c phi_c^T)
 // and a valid count. The Grams are ~R^2 f64 multiply-adds per sample.
@@ -52,8 +52,10 @@
 //   chunks) each lane adds its fragments into its warp's f64 totals in
 //   shared memory and zeroes them, so no chain in registers is longer than
 //   64 products. The totals are plain sums: a warp adds at most
-//   2^16 / 4 / 64 = 256 flushes (kernel A's span), about 3e-14 of S_abs in
-//   the worst case, inside the 1e-12 contract (measured: PERF.md).
+//   2^16 / 4 / 64 = 256 flushes (kernel A's span; 2^14 / 4 / 64 = 64 in
+//   kernels C and D), about 3e-14 of S_abs in the worst case, inside the
+//   1e-12 contract (measured: PERF.md). Kernel D's bound against an exact
+//   f64 summation (ops/precision.extended_error_bound) counts these steps.
 //   sum(d) and sum(d^2) are direct f64 sums of each sample's difference on
 //   the vector pipe, taken from the operand registers (never derived from
 //   the Gram: cov_f[:, 0] - cov_c[:, 0] cancels where phi_f ~ phi_c).
@@ -67,7 +69,8 @@
 //   a = 16P + i, b = 8J + j, for a <= b < R only. No atomics: results are
 //   bit-reproducible.
 // * Budget at R = 25 (NB = 4): 96 f64 registers of accumulators per lane
-//   with a coarse part (253-254 registers in all, a few spilled:
+//   with a coarse part (253-255 registers in all, a few spilled, most in
+//   kernel D, whose recurrences hold f64 values:
 //   mlmc_tpu_torch/tool/kernel_sass.py); per warp 14.4 KB of rows, 12.3 KB
 //   of totals and 0.5 KB of sums: 108.8 KB of dynamic shared memory per
 //   block, two blocks (8 warps) per SM (at R = 32: 124.9 KB, one block).
@@ -123,19 +126,63 @@ __device__ __forceinline__ void dmma(double (&c)[4], double a0, double a1,
       : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1));
 }
 
+// a / n, correctly rounded, for the Legendre recurrence's divisors
+// n = 2 .. 31, without the IEEE division, which is a subroutine of some
+// ten (f32) to twenty-five (f64) instructions and took a third of kernel
+// C's time and 40% of kernel D's (mlmc_tpu_torch/tool/gram_ablation.py).
+// With y = RN(1 / n) from a table: q = RN(a y), the remainder r = a - n q
+// (one fma, exact: r is a multiple of ulp(q) and smaller than 2^6 ulp(q)),
+// and q' = RN(q + r y). Before its rounding, q + r y = a/n + (a/n - q) e,
+// where |e| <= eps / 2 is the relative error of y and |a/n - q| <= 2 ulp:
+// it lies within eps ulp of a/n (eps = 2^-23 or 2^-52). With n = 2^k m, m
+// odd, the part of a/n below its last place is j/m ulp for an integer j:
+// 0, or at least 1/62 ulp away from the midpoint of two neighbours. So
+// q + r y and a/n round to the same value: q' is the IEEE quotient, up to
+// the sign of a zero (the recurrence's values are far from the subnormal
+// range, where r need not be exact). mlmc_tpu_torch/tool/exact_division.py
+// compares it with the division operator on the card: every f32 dividend,
+// and 2^32 f64 dividends per divisor.
+#define MLMC_RECIPROCALS(one)                                                \
+  {0,        one / 1,  one / 2,  one / 3,  one / 4,  one / 5,  one / 6,      \
+   one / 7,  one / 8,  one / 9,  one / 10, one / 11, one / 12, one / 13,     \
+   one / 14, one / 15, one / 16, one / 17, one / 18, one / 19, one / 20,     \
+   one / 21, one / 22, one / 23, one / 24, one / 25, one / 26, one / 27,     \
+   one / 28, one / 29, one / 30, one / 31}
+__constant__ float kRecip32[kRPad] = MLMC_RECIPROCALS(1.0f);
+__constant__ double kRecip64[kRPad] = MLMC_RECIPROCALS(1.0);
+#undef MLMC_RECIPROCALS
+
+__device__ __forceinline__ float recip_of(float, int n) { return kRecip32[n]; }
+__device__ __forceinline__ double recip_of(double, int n) { return kRecip64[n]; }
+
+template <typename T>
+__device__ __forceinline__ T div_small(T a, int n) {
+  const T y = recip_of(a, n);
+  const T q = a * y;
+  const T r = fma(-static_cast<T>(n), q, a);
+  return fma(r, y, q);
+}
+
+__device__ __forceinline__ float cos_of(float x) { return cosf(x); }
+__device__ __forceinline__ float sin_of(float x) { return sinf(x); }
+__device__ __forceinline__ double cos_of(double x) { return cos(x); }
+__device__ __forceinline__ double sin_of(double x) { return sin(x); }
+
 // Rows of one lane's sample for NS sides (fine, coarse) in lockstep into
 // row[k][n * kRowStride], n < R; basis 0 Legendre, 1 monomial, 2 Fourier,
-// in the operation order of pallas_kernels._basis_rows (f32, bit-identical
-// to the plain versions under --fmad=false and IEEE division).
-template <int NS>
+// in the operation order of pallas_kernels._basis_rows, in T (f32 for
+// kernels A and C, f64 for kernel D): bit-identical to the plain versions
+// under --fmad=false and correctly rounded division (Fourier up to the
+// last bits of cos and sin).
+template <int NS, typename T>
 __device__ __forceinline__ void basis_rows(double* const (&row)[NS],
-                                           const float (&t)[NS], float v,
-                                           int R, int basis) {
+                                           const T (&t)[NS], T v, int R,
+                                           int basis) {
   constexpr int S = kRowStride;
 #pragma unroll
   for (int k = 0; k < NS; ++k) row[k][0] = static_cast<double>(v);
   if (basis == 0) {
-    float p2[NS], p1[NS];
+    T p2[NS], p1[NS];
 #pragma unroll
     for (int k = 0; k < NS; ++k) {
       if (R > 1) row[k][S] = static_cast<double>(t[k]);
@@ -145,16 +192,16 @@ __device__ __forceinline__ void basis_rows(double* const (&row)[NS],
     for (int n = 2; n < R; ++n) {
 #pragma unroll
       for (int k = 0; k < NS; ++k) {
-        const float cur = (static_cast<float>(2 * n - 1) * t[k] * p1[k] -
-                           static_cast<float>(n - 1) * p2[k]) /
-                          static_cast<float>(n);
+        const T cur = div_small(static_cast<T>(2 * n - 1) * t[k] * p1[k] -
+                                    static_cast<T>(n - 1) * p2[k],
+                                n);
         row[k][n * S] = static_cast<double>(cur);
         p2[k] = p1[k];
         p1[k] = cur;
       }
     }
   } else if (basis == 1) {
-    float power[NS];
+    T power[NS];
 #pragma unroll
     for (int k = 0; k < NS; ++k) power[k] = v;
     for (int n = 1; n < R; ++n) {
@@ -165,11 +212,11 @@ __device__ __forceinline__ void basis_rows(double* const (&row)[NS],
       }
     }
   } else {
-    float c1[NS], s1[NS], ck[NS], sk[NS];
+    T c1[NS], s1[NS], ck[NS], sk[NS];
 #pragma unroll
     for (int k = 0; k < NS; ++k) {
-      c1[k] = cosf(t[k]) * v;
-      s1[k] = sinf(t[k]) * v;
+      c1[k] = cos_of(t[k]) * v;
+      s1[k] = sin_of(t[k]) * v;
       ck[k] = c1[k];
       sk[k] = s1[k];
     }
@@ -180,8 +227,8 @@ __device__ __forceinline__ void basis_rows(double* const (&row)[NS],
           row[k][i * S] = static_cast<double>(ck[k]);
         } else {
           row[k][i * S] = static_cast<double>(sk[k]);
-          const float nc = ck[k] * c1[k] - sk[k] * s1[k];
-          const float ns = sk[k] * c1[k] + ck[k] * s1[k];
+          const T nc = ck[k] * c1[k] - sk[k] * s1[k];
+          const T ns = sk[k] * c1[k] + ck[k] * s1[k];
           ck[k] = nc;
           sk[k] = ns;
         }

@@ -18,8 +18,10 @@
 // Bound on the card: nothing is read from device memory in RNG mode, so the
 // kernel is compute-bound: ~R^2 f64 multiply-adds per sample of a coarse
 // level (half on level 0), plus per sample one Philox4x32-10, Box-Muller's
-// f32 log/sqrt/cos and 2(R - 2) IEEE f32 divisions in the recurrences. The
-// Grams run on the FP64 tensor cores with register-level operand reuse
+// f32 log/sqrt/cos and 2(R - 2) correctly rounded f32 divisions in the
+// recurrences (a reciprocal multiplication and two fused corrections,
+// gram::div_small). The Grams run on the FP64 tensor cores with
+// register-level operand reuse
 // (csrc/moment_gram.cuh, which states the instruction, fragment layout,
 // flush length and register budget). What is left is measured
 // (mlmc_tpu_torch/tool/gram_ablation.py, PERF.md): the recurrences' long

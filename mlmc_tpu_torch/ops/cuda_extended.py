@@ -5,9 +5,10 @@ The TPU has no f64, so ``mlmc_tpu`` computes this tier in double-float
 (pairs of f32). Hopper has native f64: kernel D (``samples_ext_cuda``,
 ``csrc/samples_mlmc.cu``) is kernel C with the domain transform and the
 basis rows in f64, and the sums in f64 as in every kernel of this package.
-On identical f32 QoIs it tracks the all-f64 reference
-(``ops/precision.f64_reference_moments_strict``) within
-``ops/precision.extended_error_bound``, about 1.2e-13 * S_abs.
+Its Grams run on the FP64 tensor cores through the same code as kernel C's
+(``csrc/moment_gram.cuh``). On identical f32 QoIs it tracks the all-f64
+reference (``ops/precision.f64_reference_moments_strict``) within
+``ops/precision.extended_error_bound``, about 1.8e-13 * S_abs.
 
 ``symmetric`` selects the transform of the strict reference,
 t = (x - (a + b)/2) * scale, instead of t = (x - a) * scale + ref_lo.
@@ -38,9 +39,8 @@ def samples_ext_cuda(streams, n_moments, *, basis, consts, device):
     :param consts: f64 ``transform_constants``
     :return: stacked SynthMomentResult [S, ...] (float64, int64 counts)
     """
-    codes = ck._slot_codes(n_moments)
     out = ck._samples_launch("samples_ext_launch", streams, n_moments, basis,
-                             consts, device, codes, codes.shape[0])
+                             consts, device)
     samples_ext_cuda.launches += 1
     return out
 

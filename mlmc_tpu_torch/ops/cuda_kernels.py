@@ -259,20 +259,8 @@ def synth_mlmc_plain(x_levels, seed, n_per_level, fine_steps, coarse_steps,
 # --------------------------------------------------------------------- #
 # CUDA kernel wrappers
 # --------------------------------------------------------------------- #
-def _slot_codes(n_moments):
-    """Accumulator slots of kernel D: sums, sums2, then the upper
-    triangles of cov_f and cov_c, each coded mode << 16 | a << 8 | b."""
-    R = n_moments
-    codes = [(0 << 16) | (r << 8) | r for r in range(R)]
-    codes += [(1 << 16) | (r << 8) | r for r in range(R)]
-    for mode in (2, 3):
-        codes += [(mode << 16) | (r << 8) | s
-                  for r in range(R) for s in range(r, R)]
-    return np.asarray(codes, dtype=np.int32)
-
-
 def _tile_schedule(n_moments, has_coarse=True):
-    """Output tiles of kernels A and C (csrc/moment_gram.cuh): the 16x8
+    """Output tiles of kernels A, C and D (csrc/moment_gram.cuh): the 16x8
     tiles (P, J), 2P <= J < ceil(R / 8), that cover the upper triangle of
     each Gram, coded gram << 16 | P << 8 | J (gram 0 fine, 1 coarse), the
     fine Gram's first. A fine-only schedule is the prefix of the full one:
@@ -494,13 +482,8 @@ def samples_plain(streams, n_moments, *, basis, consts, f64=False,
     return out
 
 
-def _samples_launch(fn_name, streams, n_moments, basis, consts, device,
-                    codes, partial_size):
-    """Launch kernel C or D (``fn_name``) and its per-stream reduction.
-
-    :param codes: kernel C's tile schedule or kernel D's slot codes
-    :param partial_size: doubles of one block's partial row
-    """
+def _samples_launch(fn_name, streams, n_moments, basis, consts, device):
+    """Launch kernel C or D (``fn_name``) and its per-stream reduction."""
     device = cuda_device(device)
     lib = load_library("samples_mlmc")
     for x in (streams.fine, streams.coarse):
@@ -518,6 +501,7 @@ def _samples_launch(fn_name, streams, n_moments, basis, consts, device,
     blocks, stream_blocks = _block_tables(streams.counts, streams.offsets,
                                           streams.has_coarse, span=SAMPLES_SPAN)
     hasc = np.asarray([1 if h else 0 for h in streams.has_coarse], np.int32)
+    codes = _tile_schedule(R)
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -525,8 +509,8 @@ def _samples_launch(fn_name, streams, n_moments, basis, consts, device,
     blk_d, sb_d, hasc_d, codes_d = (dev(blocks), dev(stream_blocks),
                                     dev(hasc), dev(codes))
     n_blk, n_codes = blocks.shape[0], codes.shape[0]
-    partial = torch.empty(n_blk, partial_size, dtype=torch.float64,
-                          device=device)
+    partial = torch.empty(n_blk, _gram_partial_size(codes),
+                          dtype=torch.float64, device=device)
     partial_n = torch.empty(n_blk, dtype=torch.int64, device=device)
     out = SynthMomentResult(
         torch.empty(S, R, dtype=torch.float64, device=device),
@@ -551,9 +535,8 @@ def samples_mlmc_cuda(streams, n_moments, *, basis, consts, device):
     :param consts: f32 ``transform_constants``
     :return: stacked SynthMomentResult [S, ...] (float64, int64 counts)
     """
-    codes = _tile_schedule(n_moments)
     out = _samples_launch("samples_mlmc_launch", streams, n_moments, basis,
-                          consts, device, codes, _gram_partial_size(codes))
+                          consts, device)
     samples_mlmc_cuda.launches += 1
     return out
 

@@ -29,6 +29,8 @@ asserted by the kernel tests and checked on the GPU by chip_smoke.py.
 import numpy as np
 import torch
 
+from mlmc_tpu_torch.ops import cuda_kernels as ck
+
 EPS32 = np.float32(np.finfo(np.float32).eps)  # 1.19e-7
 # recurrence (<=2 roundings x 32 steps) + reduction tree (log2 32768 = 15)
 # + Kahan residual + 4x margin
@@ -170,21 +172,47 @@ def check_against_f64(result, ref, include_cov=True):
 # f64 tier (kernel D): strict all-f64 reference + derived bound
 # ------------------------------------------------------------------ #
 EPS64 = float(np.finfo(np.float64).eps)  # 2.2e-16
+#: samples between two flushes of a warp's DMMA accumulators, and warps per
+#: block (csrc/moment_gram.cuh: kChunk * kFlushChunks, kWarps)
+FLUSH_SAMPLES = 64
+BLOCK_WARPS = 4
 # Kernel D computes the transform and the rows in f64 with the same IEEE
 # operations in the same order as the reference (no contraction:
-# --fmad=false), so Legendre and monomial values agree bit for bit; only
+# --fmad=false; its division by n is a reciprocal multiplication with two
+# corrections that gives the IEEE quotient: csrc/moment_gram.cuh,
+# div_small), so Legendre and monomial values agree bit for bit; only
 # Fourier's cos/sin seeds may differ by an ulp, which the angle-addition
-# recurrence carries along at most ~2 roundings per step. The sums add
-# a 64-term product chain per tile, then Kahan across tiles and across
-# blocks (one rounding each). Recurrence (2 x 32) + tile chain (64)
-# + 2 Kahan residuals, with a 4x margin:
-C_BOUND64 = 4 * (2 * 32 + 64 + 2)
+# recurrence carries along at most ~2 roundings per step: 2 x 32.
+# A term of a sum then passes through these additions, in the kernel's
+# order (csrc/moment_gram.cuh), each one rounding of the running value:
+# * the DMMA accumulator's chain between two flushes: FLUSH_SAMPLES products
+#   (an m16n8k8 instruction adds 8 of them in an order the hardware does
+#   not state: counted as 8 roundings);
+# * the plain adds of a warp's flushes into its totals: a block's span of
+#   SAMPLES_SPAN samples is dealt to BLOCK_WARPS warps in interleaved
+#   chunks, so a warp flushes SAMPLES_SPAN / (BLOCK_WARPS * FLUSH_SAMPLES)
+#   times;
+# * the block's warps in order: BLOCK_WARPS adds;
+# * Kahan across a stream's blocks: one rounding of the result, and the
+#   compensation's second-order residue, counted as 2.
+# sum(d) and sum(d^2) take shorter chains (16 terms per lane and flush, two
+# shuffle adds across the 4 lanes of a row) and the same flushes, warps and
+# blocks, so the Grams' count covers them. With the module's 4x margin:
+def extended_bound_constant(span=None):
+    """Roundings counted in the f64 tier's bound for blocks of ``span``
+    samples (default: kernel D's ``cuda_kernels.SAMPLES_SPAN``, read at the
+    call): 4 * 198 = 792 at a span of 2^14."""
+    span = ck.SAMPLES_SPAN if span is None else int(span)
+    return 4 * (2 * 32 + FLUSH_SAMPLES
+                + -(-span // (BLOCK_WARPS * FLUSH_SAMPLES))
+                + BLOCK_WARPS + 2)
 
 
 def extended_error_bound(abs_sums):
-    """Derived bound on |f64 kernel - all-f64 reference| (~1.2e-13 * S_abs),
-    inside the f64 tier's contract of 1e-12 * S_abs."""
-    return EPS64 * C_BOUND64 * np.asarray(abs_sums)
+    """Derived bound on |f64 kernel - all-f64 reference| (~1.8e-13 * S_abs
+    at kernel D's span of 2^14 samples per block), inside the f64 tier's
+    contract of 1e-12 * S_abs."""
+    return EPS64 * extended_bound_constant() * np.asarray(abs_sums)
 
 
 def f64_reference_moments_strict(noise=None, n_moments=None, *,

@@ -16,9 +16,13 @@ Tolerances, on identical f32 QoIs made with numpy:
   all-f64 reference, and within the double-float bound of mlmc_tpu's
   double-float kernel in interpret mode (``df_error_bound`` for the sums,
   1e-9 relative for the covariance);
-* on the card, each kernel against its plain version: n_valid equal,
-  1e-12 * S_abs (Fourier: the f32 bound, since the kernel's cosf/sinf and
-  PyTorch's may differ in the last bit).
+* on the card, each kernel against its plain version: n_valid equal;
+  kernel C within 1e-12 * S_abs (Fourier: the f32 bound, since the
+  kernel's cosf/sinf and PyTorch's may differ in the last bit); kernel D
+  within ``extended_error_bound(S_abs)`` (1.8e-13 * S_abs, derived for its
+  summation order in ``ops/precision.py``) of its plain version and of the
+  strict all-f64 reference. ``tests/test_torch_extended.py`` holds a numpy
+  model of that summation order against the same bound on the CPU.
 """
 import numpy as np
 import pytest
@@ -334,30 +338,50 @@ def test_cuda_kernel_c_vs_plain(cuda_device, basis, R):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("basis", ["legendre", "fourier"])
-def test_cuda_kernel_d_vs_plain(cuda_device, basis):
-    streams = _device_streams(cuda_device)
+@pytest.mark.parametrize("R", [1, 2, 8, 24, 25, 32])
+@pytest.mark.parametrize("basis", ["legendre", "monomial", "fourier"])
+def test_cuda_kernel_d_vs_plain(cuda_device, basis, R):
+    """Kernel D on kernel C's streams (``C_SIZES``; NaN and out-of-domain
+    samples of ``_qoi`` dropped) within the f64 tier's derived bound of its
+    plain version."""
+    streams = _device_streams(cuda_device, sizes=C_SIZES, first_valid=True)
     consts = ck.transform_constants(DOMAIN, REF[basis], f64=True)
     before = cx.samples_ext_cuda.launches
-    got = cx.samples_ext_moments(streams, 25, domain=DOMAIN,
+    got = cx.samples_ext_moments(streams, R, domain=DOMAIN,
                                  ref_domain=REF[basis], basis=basis)
     assert cx.samples_ext_cuda.launches == before + 1
-    plain, s_abs = (cx.samples_ext_plain(streams, 25, basis=basis, consts=consts,
+    plain, s_abs = (cx.samples_ext_plain(streams, R, basis=basis, consts=consts,
                                          absolute=a) for a in (False, True))
     assert torch.equal(got.n_valid, plain.n_valid)
+    assert 0 < int(got.n_valid[0]) < C_SIZES[0]     # some samples dropped
+    assert int(got.n_valid[4]) == 1                 # the one-sample stream
     for name in FIELDS:
         err = (getattr(got, name) - getattr(plain, name)).abs().cpu().numpy()
         bound = port_precision.extended_error_bound(
             getattr(s_abs, name).clamp(min=1.0).cpu().numpy())
         assert np.all(err <= bound), name
+    assert not torch.any(got.cov_coarse[0] != 0)   # no coarse part
+    assert all(not torch.any(f[2] != 0) for f in got)   # zero-sample stream
+    again = cx.samples_ext_moments(streams, R, domain=DOMAIN,
+                                   ref_domain=REF[basis], basis=basis)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)                    # bit-identical launches
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_d_vs_strict_reference(cuda_device):
-    fine, coarse = _qoi(200_000, seed=9)
+@pytest.mark.parametrize("is_level0", [False, True])
+@pytest.mark.parametrize("n", [1, 63, 65, (1 << 14) + 1, 200_000])
+@pytest.mark.parametrize("R", [1, 2, 8, 24, 25, 32])
+def test_cuda_kernel_d_vs_strict_reference(cuda_device, R, n, is_level0):
+    fine, coarse = _qoi(n, seed=9)
+    fine[0], coarse[0] = 0.3, 0.31                  # NaN in ``_qoi``
     got = cx.moment_pipeline_from_samples_extended(
         torch.from_numpy(fine).to(cuda_device), torch.from_numpy(coarse),
-        25, domain=DOMAIN, symmetric=True)
+        R, domain=DOMAIN, symmetric=True, is_level0=is_level0)
     ref = port_precision.f64_reference_moments_strict(
-        n_moments=25, domain=DOMAIN, fine32=fine, coarse32=coarse)
+        n_moments=R, domain=DOMAIN, fine32=fine, coarse32=coarse,
+        is_level0=is_level0)
+    assert got.n_valid == ref["n_valid"] > 0
     port_precision.check_extended_against_f64(got, ref)
+    if is_level0:
+        assert not np.any(got.cov_coarse != 0)
