@@ -1,4 +1,4 @@
-"""Drive mlmc_tpu_torch's two MLMC main paths once on one GPU.
+"""Drive mlmc_tpu_torch's MLMC main paths once on one GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -27,17 +27,37 @@ Run from the root of a checkout:  python3 chip_smoke.py
    d. the Quantity DAG of BASELINE config 4 on 2.75e6 samples: the generic
       tier and the packed tier (kernel C) agree within the f32 bound;
    fails unless kernels C and D were launched;
-5. holds each kernel's outputs at its path's shapes against its plain
+5. the simulations path, with the counters reset just before it: the
+   three BASELINE configurations whose samples are real simulations,
+   a. config 2, the shooting ODE (1D, 256 modes, 200 and 1000 Euler steps):
+      batches of 8192 coupled samples, the one-matmul route against the
+      generic route, then the 2-level MLMC run with the variance-optimal
+      allocation, the fast tier (kernel C) against the f64 tier (kernel D),
+      the L=1 entry of kernel C, and the bootstrap in its three schemes;
+   b. config 3, the maxent density from 35 exact moments of a two-Gaussian
+      target;
+   c. config 5, the Darcy flow with a circulant-embedding GRF: batches of
+      1024 coupled 64^2 / 16^2 samples, the homogeneous limit, the field's
+      covariance, then bench_e2e_darcy's adaptive 3-level loop for
+      target_var=1e-6 (it ends when the allocation is scheduled; the
+      variance the finished run then shows is printed beside the target)
+      with kernel C estimating the level variances each round and kernel D
+      the final mean flux;
+   fails unless kernels C and D were launched, and holds them against
+   their plain versions at this path's streams;
+6. holds each kernel's outputs at its path's shapes against its plain
    version (kernel C at the e2e, config-4 and structured streams; kernel D
    at the e2e and structured streams, also against an exact f64 summation,
    and two launches of it bit for bit against each other);
-6. times each kernel and its plain version at those shapes and computes
+7. times each kernel and its plain version at those shapes and computes
    each kernel's bound from this run's inputs; kernels C and D also at
    their largest launch, the structured tier's 12 x 5 streams.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout. The last line is {"ok": true, "device": {...}}; the line before
-it lists the kernels with their launch counts, errors, times and bounds.
+it lists the kernels with their launch counts (of all the paths, and by
+path under "launches_by_path"), errors, times and bounds; each configuration of the simulations path prints one
+JSON line of its own.
 """
 import json
 import os
@@ -61,6 +81,14 @@ TARGET_VAR = 1e-5          # FusedMLMC's target
 E2E_TARGET_VAR = 2e-8      # the stored path's adaptive target
 C4_LEVELS = [[0.1], [0.01], [0.001]]
 C4_N0 = 1 << 21            # config 4: 2^21 + 2^19 + 2^17 samples
+
+# config 3: what mlmc_tpu gives for the 35-moment two-Gaussian target on the
+# CPU in f64 (tests/test_torch_density.py measures both and holds these
+# constants to them); the card's result may be at most 10 x each
+MAXENT35_JAX_KL = 1.4919e-05
+MAXENT35_JAX_RESIDUAL = 4.985e-09
+DARCY_TARGET_VAR = 1e-6
+DARCY_TARGET_SLACK = 1.1   # the finished run's variance may sit this far above
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the FP64 rate of
 # the tensor cores (the fastest f64 unit); the int32 rate is 64 lanes per
@@ -667,6 +695,411 @@ def stored_path(torch, dev):
     ]
 
 
+# ------------------------------------------------------------------------ #
+# the simulations path: BASELINE configs 2, 3 and 5 (kernels C and D)
+# ------------------------------------------------------------------------ #
+def _streams_vs_plain(torch, dev, est, what):
+    """Kernels C and D at an estimate's streams against their plain
+    versions (1e-12 * S_abs); returns the two max errors."""
+    from mlmc_tpu_torch.ops import cuda_extended as cx
+    from mlmc_tpu_torch.ops import cuda_kernels as ck
+
+    mfn = est._moments_fn
+    streams = est._packed_streams(mfn, [0])
+    errs = []
+    for name, launch, plain_fn, consts in (
+            ("C", ck.samples_mlmc_cuda, ck.samples_mlmc_plain,
+             ck.transform_constants(mfn.domain)),
+            ("D", cx.samples_ext_cuda, cx.samples_ext_plain,
+             ck.transform_constants(mfn.domain, f64=True))):
+        got = launch(streams, mfn.size, basis="legendre", consts=consts, device=dev)
+        plain, s_abs = (plain_fn(streams, mfn.size, basis="legendre", consts=consts,
+                                 absolute=a) for a in (False, True))
+        err, rel = _compare(torch, got, plain, s_abs, "kernel %s at %s" % (name, what))
+        errs.append(err)
+        print("kernel %s at %s (%s samples, R=%d) vs plain: n_valid %s equal; max "
+              "|kernel-plain| %.3g, / S_abs %.3g (tol 1e-12)"
+              % (name, what, list(streams.counts), mfn.size, got.n_valid.tolist(),
+                 err, rel))
+    return errs
+
+
+def config2_shooting(torch, dev, mt):
+    """BASELINE config 2 at bench_extra.py's size."""
+    from mlmc_tpu_torch.ops import cuda_kernels as ck
+    from mlmc_tpu_torch.ops.precision import accumulation_error_bound
+
+    Sim = mt.ShootingSimulation1D
+    borders = (-100.0, 200.0, -300.0, 400.0)
+    sim = Sim(dict(
+        start_position=(0.0, 0.0), start_velocity=(10.0, 0.0),
+        area_borders=borders, max_time=10.0, complexity=20.0, n_modes=256,
+        fields_params=dict(model="gauss", corr_length=1.0, sigma=0.5, log=False)))
+    out = {"config": 2, "workload": "shooting 1D, 1000+200 Euler steps, 256 modes"}
+
+    # ---- (a) coupled batches of 8192 ---------------------------------- #
+    with Phase(torch, "config 2: shooting batches"):
+        cfg = sim.level_instance([0.02], [0.1]).config_dict
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        B = 8192
+        ms = _time_ms(torch, lambda: Sim.calculate_batch(cfg, gen, B), reps=16)
+        fine, coarse, failed = Sim.calculate_batch(cfg, gen, B)
+        _require(fine.shape == (B, 1) and fine.device == dev and not bool(failed.any()),
+                 "shooting batch shape/device")
+        nan_frac = float(torch.isnan(fine).float().mean())
+        mean_fine = float(fine[~torch.isnan(fine)].double().mean())
+        _require(np.isfinite(mean_fine) and nan_frac < 0.5, "shooting batch values")
+        # the one-matmul route against the generic route on the same draws
+        trig = Sim._phase_trig(cfg, gen, B, dev, torch.float32)
+        a = Sim._calculate_level(cfg, trig, "fine")[:, 0]
+        b = Sim._calculate_level(cfg, trig, "fine", generic=True)[:, 0]
+        # distance of each trajectory from the borders, in f64
+        cfg64 = dict(cfg, dtype="float64", _cache={})
+        trig64 = tuple(t.double() for t in trig)
+        n = cfg["fine"]["n_elements"]
+        times = torch.linspace(0.0, cfg["max_time"], n, dtype=torch.float64, device=dev)
+        dt = cfg["max_time"] / n
+        acc = dt * dt * torch.matmul(Sim._euler_weights(n, torch.float64, dev),
+                                     Sim._force_field_batch(cfg64, trig64, times))
+        j_dt = dt * torch.arange(1, n + 1, dtype=torch.float64, device=dev)
+        X = (torch.tensor(cfg["start_position"], dtype=torch.float64, device=dev)
+             + j_dt[None, :, None] * torch.tensor(cfg["start_velocity"],
+                                                  dtype=torch.float64, device=dev) + acc)
+        margin = torch.stack([X[..., 0] - borders[0], borders[1] - X[..., 0],
+                              X[..., 1] - borders[2], borders[3] - X[..., 1]]
+                             ).amin(dim=(0, 2))
+        differ = torch.isnan(a) != torch.isnan(b)
+        _require(bool((margin[differ].abs() < 1e-3).all()),
+                 "shooting routes disagree on a sample away from the borders")
+        both = ~torch.isnan(a) & ~torch.isnan(b)
+        route_rel = float(((a - b).abs() / b.abs().clamp(min=1.0))[both].max())
+        _require(route_rel <= 1e-4, "shooting routes differ: %.3g" % route_rel)
+        out.update(batch=B, batch_ms=ms, samples_per_s=B / ms * 1e3,
+                   mean_fine=mean_fine, nan_fraction=nan_frac,
+                   routes_max_rel_diff=route_rel, routes_mask_mismatches=int(differ.sum()))
+        print("config 2 batches: %d coupled samples in %.3f ms (CUDA events, median "
+              "of 16): %.4g samples/s; mean finite fine %.4f, NaN fraction %.4f; "
+              "log=False route vs generic route: max rel diff %.3g (tol 1e-4), %d NaN "
+              "masks differ (all within 1e-3 of a border)"
+              % (B, ms, out["samples_per_s"], mean_fine, nan_frac, route_rel,
+                 int(differ.sum())))
+
+    # ---- (b) the 2-level MLMC run -------------------------------------- #
+    with Phase(torch, "config 2: 2-level MLMC run, allocation, tiers"):
+        storage = mt.DeviceMemory(device=dev)
+        pool = mt.DeviceBatchPool(seed=9, device_results=True, device=dev)
+        sampler = mt.Sampler(storage, pool, sim, [[0.1], [0.02]])
+        sampler.set_initial_n_samples([1 << 17, 1 << 15])
+        sampler.schedule_samples()
+        sampler.ask_sampling_pool_for_samples()
+        _require(storage.get_n_collected() == [1 << 17, 1 << 15],
+                 "shooting run: NaN results must be stored, got %s"
+                 % storage.get_n_collected())
+        q = mt.make_root_quantity(storage, sim.result_format())["target"][10]["0"][0]
+        domain = mt.estimate_domain(q, storage, quantile=0.01)
+        mfn = mt.Legendre(5, domain)
+        est = mt.Estimate(q, storage, mfn)
+        raw, ns = est.estimate_diff_vars_fast()               # kernel C
+        variances, n_ops = est.estimate_diff_vars_regression(
+            sampler._n_scheduled_samples, raw_vars=raw)
+        n_est = mt.estimate_n_samples_for_target_variance(
+            1e-3, variances, n_ops, n_levels=2)
+        _require(n_est[0] >= n_est[1] >= 2, "shooting allocation %s" % n_est.tolist())
+        fast_mean, fast_var = est.estimate_moments_fast()     # kernel C
+        ext_mean, ext_var = est.estimate_moments_extended()   # kernel D
+        tol = 2 * float(accumulation_error_bound(2.0))
+        tier_diff = float(np.max(np.abs(fast_mean - ext_mean)))
+        _require(fast_mean[0] == 1.0 and ext_mean[0] == 1.0 and tier_diff <= tol
+                 and np.all(np.isfinite(ext_var)),
+                 "shooting fast tier vs f64 tier: %.3g > %.3g" % (tier_diff, tol))
+        # row 5 of the kernel table: the L=1 entry of kernel C on level 0
+        before = ck.samples_mlmc_cuda.launches
+        pairs0 = storage.sample_pairs()[0]                    # [1, N, 1]
+        one = mt.moment_pipeline_from_samples(pairs0[0, :, 0], None, 5, domain=domain,
+                                              is_level0=True)
+        l1_launches = ck.samples_mlmc_cuda.launches - before
+        _require(l1_launches == 1, "moment_pipeline_from_samples launched %d times"
+                 % l1_launches)
+        packed0 = est._fast_results_packed(mfn, [0])[0][0]
+        _require(int(one.n_valid) == int(packed0.n_valid) and all(
+            np.array_equal(getattr(one, f).cpu().numpy(), getattr(packed0, f))
+            for f in ("sums", "sums2", "cov_fine")),
+            "the L=1 entry differs from the packed launch's level 0")
+        # the coupling: a shared force field makes the level variance small
+        pairs1 = storage.sample_pairs()[1][0]                 # [N, 2]
+        ok = ~torch.isnan(pairs1).any(dim=1)
+        v_diff = float((pairs1[ok, 0] - pairs1[ok, 1]).double().var())
+        v_fine = float(pairs1[ok, 0].double().var())
+        _require(v_diff < 0.5 * v_fine, "shooting coupling: %.3g vs %.3g" % (v_diff, v_fine))
+        out.update(n_collected=storage.get_n_collected(), domain=list(domain),
+                   n_valid=ns.tolist(), n_estimated=n_est.tolist(),
+                   tiers_max_mean_diff=tier_diff, v_diff=v_diff, v_fine=v_fine,
+                   l1_entry_launches=l1_launches)
+        print("config 2 MLMC: n %s (n_valid %s), domain (%.3f, %.3f); allocation for "
+              "1e-3: %s; fast vs f64 tier max |mean diff| %.3g (tol %.3g); the L=1 "
+              "entry of kernel C equals the packed launch's level 0 bit for bit; "
+              "v_diff %.4g < 0.5 * v_fine %.4g"
+              % (storage.get_n_collected(), ns.tolist(), domain[0], domain[1],
+                 n_est.tolist(), tier_diff, tol, v_diff, v_fine))
+
+    # ---- bootstrap CIs, three schemes ---------------------------------- #
+    with Phase(torch, "config 2: bootstrap, three schemes"):
+        means, boot_s = {}, {}
+        for replace in (False, True, "poisson"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            est.est_bootstrap_fast(n_subsamples=100, sample_vector=[1 << 16, 1 << 14],
+                                   seed=SEED, replace=replace)
+            torch.cuda.synchronize()
+            boot_s[str(replace)] = time.perf_counter() - t0
+            _require(est.var_bs_mean[0] == 0.0 and np.all(est.var_bs_mean >= 0),
+                     "bootstrap %r: var_bs_mean %s" % (replace, est.var_bs_mean))
+            _require(est.mean_bs_l_vars.shape == (2, 5), "bootstrap attribute shapes")
+            means[str(replace)] = (est.mean_bs_mean.copy(), est.var_bs_mean.copy())
+        ref_mean, ref_var = means["False"]
+        for name, (m, v) in means.items():
+            tol_b = 6 * np.sqrt(np.maximum(v, ref_var) / 100) + 1e-6
+            _require(np.all(np.abs(m - ref_mean) <= tol_b),
+                     "bootstrap scheme %s disagrees: %s vs %s" % (name, m, ref_mean))
+        out.update(bootstrap_s=boot_s, bootstrap_ci_halfwidth=(
+            1.96 * np.sqrt(ref_var)).tolist())
+        print("config 2 bootstrap (B=100, n_sub [65536, 16384]): %s s (host clock, "
+              "first call each); var_bs_mean[0] == 0, the three schemes' means agree "
+              "within 6 sqrt(var/100) + 1e-6"
+              % {k: round(v, 3) for k, v in boot_s.items()})
+    print(json.dumps(out))
+    return est
+
+
+def config3_maxent35(torch, dev):
+    """BASELINE config 3 as bench_extra.py's bench_maxent35."""
+    import scipy.stats as stats
+
+    import mlmc_tpu_torch as mt
+    import mlmc_tpu_torch.tool.simple_distribution as sd
+
+    with Phase(torch, "config 3: maxent from 35 moments"):
+        comps = (stats.norm(-1.5, 0.6), stats.norm(2.0, 1.0))
+        pdf = lambda x: sum(0.5 * c.pdf(x) for c in comps)
+        lo = min(c.ppf(1e-8) for c in comps)
+        hi = max(c.ppf(1 - 1e-8) for c in comps)
+        mfn = mt.Legendre(35, (lo, hi))
+        cov = sd.compute_semiexact_cov(mfn, pdf)
+        orto, _ = sd.construct_ortogonal_moments(mfn, cov, tol=1e-13)
+        mu = sd.compute_semiexact_moments(orto, pdf)
+        data = np.stack((mu, np.ones(orto.size)), axis=1)
+        solve_s = []
+        for _ in range(2):  # first call and a warm one
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d = sd.SimpleDistribution(orto, data, domain=mfn.domain, device=dev)
+            result = d.estimate_density_minimize(tol=1e-10)
+            torch.cuda.synchronize()
+            solve_s.append(time.perf_counter() - t0)
+        _require(result.success, "maxent35 did not converge: %s" % result.message)
+        kl = float(sd.KL_divergence(pdf, d.density, lo, hi))
+        residual = float(np.linalg.norm(sd.compute_semiexact_moments(orto, d.density) - mu))
+        _require(kl <= 10 * MAXENT35_JAX_KL, "maxent35 KL %.3g > 10 x %.3g"
+                 % (kl, MAXENT35_JAX_KL))
+        _require(residual <= 10 * MAXENT35_JAX_RESIDUAL, "maxent35 residual %.3g > 10 x "
+                 "%.3g" % (residual, MAXENT35_JAX_RESIDUAL))
+    out = {"config": 3, "workload": "maxent 35 moments, two-Gaussian mixture, tol 1e-10",
+           "solve_s_first": solve_s[0], "solve_s": solve_s[1], "kl_vs_exact": kl,
+           "moment_residual": residual, "n_orto_moments": int(orto.size),
+           "newton_iterations": int(result.nit), "converged": bool(result.success)}
+    print("config 3: %d orthogonal moments, converged in %d Newton iterations, %.3f s "
+          "(first call %.3f s, host clock); KL vs exact %.4g (mlmc_tpu on the CPU "
+          "%.4g), moment residual %.3g (%.3g)"
+          % (orto.size, result.nit, solve_s[1], solve_s[0], kl, MAXENT35_JAX_KL,
+             residual, MAXENT35_JAX_RESIDUAL))
+    print(json.dumps(out))
+
+
+def config5_darcy(torch, dev, mt):
+    """BASELINE config 5 as bench_extra.py's bench_diffusion and
+    bench_e2e_darcy."""
+    import mlmc_tpu_torch.quantity.quantity_estimate as qe
+    from mlmc_tpu_torch.ops import cuda_kernels as ck
+
+    Sim = mt.DiffusionSimulation
+    sim = Sim(dict(sigma=1.0, corr_length=0.3, field_method="circulant"))
+    out = {"config": 5, "workload": "Darcy, circulant-embedding GRF, CG solve"}
+
+    # ---- (a) coupled batches of 1024 at 64^2 / 16^2 -------------------- #
+    with Phase(torch, "config 5: Darcy batches, homogeneous limit, covariance"):
+        cfg = sim.level_instance([1 / 64], [1 / 16]).config_dict
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        B = 1024
+        ms = _time_ms(torch, lambda: Sim.calculate_batch(cfg, gen, B), reps=8)
+        fines = []
+        for _ in range(8):
+            fine, coarse, failed = Sim.calculate_batch(cfg, gen, B)
+            fines.append(fine[:, 0].double())
+        fines = torch.cat(fines)
+        nan_frac = float(torch.isnan(fines).double().mean())
+        _require(nan_frac == 0.0 and not bool(failed.any()) and fine.shape == (B, 1),
+                 "Darcy batch: NaN fraction %g" % nan_frac)
+        batch_mean = float(fines.mean())
+        batch_se = float(fines.std() / np.sqrt(fines.numel()))
+        noise = torch.randn((B, 2, 128, 128), generator=gen, device=dev)
+        _, _, it_f, it_c = Sim._calculate(cfg, noise=(noise[:, 0], noise[:, 1]))
+        max_it = (int(it_f.max()), int(it_c.max()))
+        # the homogeneous limit: K = k0 gives flux k0
+        K = torch.full((4, 64, 64), 2.5, device=dev)
+        p, it_h = Sim._solve_pressure(cfg, K)
+        hom = float(Sim._flux(K, p).double().sub(2.5).abs().max())
+        _require(hom < 2.5e-4, "homogeneous limit: |flux - k0| = %.3g" % hom)
+        # the field's covariance over 4096 samples, at a few lags
+        N = 4096
+        w = torch.randn((N, 2, 128, 128), generator=gen, device=dev)
+        g = Sim._circulant_field(cfg, w[:, 0], w[:, 1]).double()
+        field = mt.CirculantEmbeddingField(
+            corr_exp="gauss", dim=2, corr_length=0.3, grid_shape=(64, 64),
+            grid_step=1 / 64, device=dev, dtype=torch.float32)
+        one = field._sample_from(w[0, 0], w[0, 1]).reshape(64, 64)
+        _require(float((one.double() - g[0]).abs().max()) < 1e-4,
+                 "the simulation's field differs from CirculantEmbeddingField's")
+        cov_dev = 0.0
+        for di, dj in ((0, 0), (0, 5), (7, 0), (10, 10), (0, 25)):
+            prod = g[:, 0, 0] * g[:, di, dj]
+            want = np.exp(-((di * di + dj * dj) / 64.0 ** 2) / 0.3 ** 2)
+            dev_sigma = abs(float(prod.mean()) - want) / float(prod.std() / np.sqrt(N))
+            cov_dev = max(cov_dev, dev_sigma)
+            _require(dev_sigma < 5, "field covariance at lag (%d, %d): %.3g vs %.3g "
+                     "(%.1f sigma)" % (di, dj, float(prod.mean()), want, dev_sigma))
+        del w, g, noise
+        out.update(batch=B, batch_ms=ms, samples_per_s=B / ms * 1e3, mean_flux_batches=batch_mean,
+                   nan_fraction=nan_frac, max_cg_iterations_fine=max_it[0],
+                   max_cg_iterations_coarse=max_it[1], homogeneous_abs_err=hom,
+                   covariance_max_sigma=cov_dev)
+        print("config 5 batches: %d coupled 64^2/16^2 samples in %.3f ms (CUDA events, "
+              "median of 8): %.4g samples/s; mean flux %.4f +- %.4f, NaN fraction 0; max "
+              "CG iterations %d (64^2), %d (16^2); homogeneous limit |flux - k0| %.3g; "
+              "field covariance over 4096 samples within %.2f sigma of exp(-(r/L)^2) "
+              "at 5 lags (tol 5)"
+              % (B, ms, out["samples_per_s"], batch_mean, batch_se, max_it[0], max_it[1],
+                 hom, cov_dev))
+
+    # ---- (b) the adaptive 3-level loop --------------------------------- #
+    with Phase(torch, "config 5: adaptive Darcy MLMC loop") as loop:
+        t_start = time.perf_counter()
+        storage = mt.DeviceMemory(device=dev)
+        pool = mt.DeviceBatchPool(seed=23, device_results=True, min_bucket=1 << 12,
+                                  max_batch=1 << 14, device=dev)
+        sampler = mt.Sampler(storage, pool, sim, [[1 / 16], [1 / 32], [1 / 64]])
+        sampler.set_initial_n_samples([2000, 500, 100])
+        sampler.schedule_samples()
+        sampler.ask_sampling_pool_for_samples()
+        q = mt.make_root_quantity(storage, sim.result_format())["flux"][0]["outflow"][0]
+        mfn = mt.Legendre(15, (0.05, 8.0))
+        est = mt.Estimate(q, storage, mfn)
+        torch.cuda.synchronize()
+        clock = {"sampling": time.perf_counter() - t_start, "kernel_c_estimate": 0.0,
+                 "host": 0.0}
+        # bench_e2e_darcy's loop as it stands: it ends when a round has
+        # scheduled the whole allocation for the regressed variances
+        rounds, reached = 0, False
+        while rounds < 12:
+            t0 = time.perf_counter()
+            raw, _ns = est.estimate_diff_vars_fast()          # one kernel C launch
+            t1 = time.perf_counter()
+            variances, n_ops = est.estimate_diff_vars_regression(
+                sampler._n_scheduled_samples, raw_vars=raw)
+            n_est = mt.estimate_n_samples_for_target_variance(
+                DARCY_TARGET_VAR, variances, n_ops, n_levels=sampler.n_levels)
+            t2 = time.perf_counter()
+            reached = sampler.process_adding_samples(n_est, 0, 0.3)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            clock["kernel_c_estimate"] += t1 - t0
+            clock["host"] += t2 - t1
+            clock["sampling"] += t3 - t2
+            if reached:
+                break
+            rounds += 1
+        _require(reached, "Darcy loop: the allocation for target %.0e was not reached "
+                 "in %d rounds" % (DARCY_TARGET_VAR, rounds))
+        m = qe.estimate_mean(q)
+        rates = mt.estimate_convergence_rates(
+            m.l_means, m.l_vars, storage.get_level_parameters(), storage.get_n_ops())
+        wall = time.perf_counter() - t_start
+        n_at_loop_end = [int(v) for v in storage.get_n_collected()]
+    _require(rates["beta"] > 0, "Darcy variance rate beta = %r" % rates["beta"])
+    # what the finished run's samples say of the target, once the last
+    # round's samples are in the storage too: the estimate's variance by
+    # moment from kernel C's level variances as they are, and from the
+    # regressed ones, which the allocation was made for
+    sampler.ask_sampling_pool_for_samples()
+    raw, ns = est.estimate_diff_vars_fast()
+    regressed, _ = est.estimate_diff_vars_regression(
+        sampler._n_scheduled_samples, raw_vars=raw)
+    var = float(np.max((raw[:, 1:] / ns[:, None]).sum(axis=0)))
+    var_regressed = float(np.max((regressed[:, 1:] / ns[:, None]).sum(axis=0)))
+    # the allocation was made from level variances estimated a round
+    # earlier, so the finished run sits at the target up to their noise
+    _require(var <= DARCY_TARGET_SLACK * DARCY_TARGET_VAR,
+             "Darcy loop: max var %.4g after the allocation for %.0e (slack %.2f)"
+             % (var, DARCY_TARGET_VAR, DARCY_TARGET_SLACK))
+    # the mean flux on the f64 tier: Legendre's moment 1 is the mean of the
+    # transformed value, which maps back linearly
+    ext_mean, ext_var = est.estimate_moments_extended()       # kernel D
+    half = (mfn.domain[1] - mfn.domain[0]) / 2.0
+    flux_d = mfn.domain[0] + (ext_mean[1] + 1.0) * half
+    flux_d_se = float(np.sqrt(ext_var[1]) * half)
+    flux_generic = float(np.ravel(m.mean)[0])
+    tol = 6 * float(np.hypot(flux_d_se, batch_se))
+    _require(ext_mean[0] == 1.0 and abs(flux_d - batch_mean) <= tol,
+             "Darcy MLMC mean flux %.5f vs the batches' %.5f (tol %.3g)"
+             % (flux_d, batch_mean, tol))
+    out.update(loop_wall_s=wall, rounds=rounds, target_var=DARCY_TARGET_VAR,
+               target_met=var <= DARCY_TARGET_VAR, max_var=var, max_var_regressed=var_regressed,
+               n_per_level=[int(v) for v in storage.get_n_collected()],
+               n_per_level_at_loop_end=n_at_loop_end,
+               n_valid=ns.tolist(), dispatches=int(pool.n_dispatches),
+               blocking_fetches=int(pool.n_blocking_fetches),
+               mean_flux=flux_generic, mean_flux_f64_tier=float(flux_d),
+               mean_flux_f64_tier_se=flux_d_se,
+               alpha=rates["alpha"], beta=rates["beta"], gamma=rates.get("gamma"),
+               clock_s=clock, n_ops=[float(c) for c in storage.get_n_ops()])
+    print("config 5 adaptive loop: the allocation for target var %.0e reached (max var "
+          "over the moments %.4g by the raw level variances, %.4g by the regressed) "
+          "after %d rounds in %.2f s (host clock: sampling %.2f s, kernel C estimates %.3f s, "
+          "regression and allocation %.3f s); n per level %s; pool: %d dispatches, %d "
+          "blocking fetches; mean flux %.5f (generic tier), %.5f +- %.5f (f64 tier, "
+          "kernel D) vs the batches' %.5f +- %.5f; alpha %.3f, beta %.3f, gamma %.3f"
+          % (DARCY_TARGET_VAR, var, var_regressed, rounds, wall, clock["sampling"],
+             clock["kernel_c_estimate"], clock["host"], out["n_per_level"],
+             pool.n_dispatches, pool.n_blocking_fetches, flux_generic, flux_d, flux_d_se,
+             batch_mean, batch_se, rates["alpha"], rates["beta"],
+             rates.get("gamma", float("nan"))))
+    print(json.dumps(out))
+    return est
+
+
+def simulations_path(torch, dev):
+    """BASELINE configs 2, 3 and 5; returns the path's launch counts."""
+    import mlmc_tpu_torch as mt
+    from mlmc_tpu_torch.ops import cuda_extended as cx
+    from mlmc_tpu_torch.ops import cuda_kernels as ck
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ck.reset_launch_counts()
+    cx.reset_launch_counts()
+    with Phase(torch, "simulations path") as whole:
+        shoot_est = config2_shooting(torch, dev, mt)
+        config3_maxent35(torch, dev)
+        darcy_est = config5_darcy(torch, dev, mt)
+    counts = {**ck.launch_counts(), **cx.launch_counts()}
+    print("simulations path: %.2f s; kernel launches %s; peak device memory %.3f GB"
+          % (whole.seconds, counts, torch.cuda.max_memory_allocated(dev) / 1e9))
+    for name in ("samples_mlmc", "samples_ext"):
+        _require(counts[name] > 0, "kernel %s was not launched by its path" % name)
+    with Phase(torch, "kernels C/D vs plain at the simulations' streams"):
+        errs = (_streams_vs_plain(torch, dev, shoot_est, "the shooting streams")
+                + _streams_vs_plain(torch, dev, darcy_est, "the Darcy streams"))
+    return counts, {"samples_mlmc": max(errs[0::2]), "samples_ext": max(errs[1::2])}
+
+
 def main():
     import torch
 
@@ -689,7 +1122,17 @@ def main():
         for name in _build.build_all():
             _build.load_library(name)
 
-    kernels = storage_free_path(torch, dev) + stored_path(torch, dev)
+    own = {"storage_free": storage_free_path(torch, dev),
+           "stored": stored_path(torch, dev)}
+    counts, errs = simulations_path(torch, dev)
+    kernels = []
+    for path, of_path in own.items():
+        for k in of_path:  # launches of every path; errors at every path's streams
+            k["launches_by_path"] = {path: k["launches"],
+                                     "simulations": counts[k["name"]]}
+            k["launches"] += counts[k["name"]]
+            k["max_abs_err"] = max(k["max_abs_err"], errs.get(k["name"], 0.0))
+            kernels.append(k)
     print(_smi("name,power.limit"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

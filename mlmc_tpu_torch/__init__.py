@@ -2,7 +2,8 @@
 sample -> moment kernels written in CUDA for Hopper: the storage-free path
 (``FusedMLMC``, ``synth_mlmc_pipeline``) and the stored-samples path
 (``Sampler`` -> ``DeviceBatchPool`` -> ``DeviceMemory`` -> ``Quantity`` ->
-``Estimate``).
+``Estimate``), with the synthetic, the shooting-ODE and the Darcy-flow
+simulations and the correlated random fields as tensor code.
 
 Module paths and public names mirror ``mlmc_tpu``: the counterpart of
 ``mlmc_tpu/X.py`` is ``mlmc_tpu_torch/X.py``. Importing the package has no
@@ -13,6 +14,11 @@ from mlmc_tpu_torch.moments import (
 from mlmc_tpu_torch.random.distributions import Norm, TorchDistr, as_torch_distr
 from mlmc_tpu_torch.sim.simulation import Simulation
 from mlmc_tpu_torch.sim.synth_simulation import SynthSimulation
+from mlmc_tpu_torch.sim.shooting import ShootingSimulation1D, ShootingSimulation2D
+from mlmc_tpu_torch.sim.diffusion import DiffusionSimulation
+from mlmc_tpu_torch.random.correlated_field import (
+    SpatialCorrelatedField, SpectralCorrelatedField, CirculantEmbeddingField,
+    GSToolsSpatialCorrelatedField, FourierSpatialCorrelatedField, Field, Fields)
 from mlmc_tpu_torch.level_simulation import LevelSimulation
 from mlmc_tpu_torch.quantity.quantity_spec import QuantitySpec
 from mlmc_tpu_torch.ops.fused_estimate import (
@@ -28,7 +34,8 @@ from mlmc_tpu_torch.ops.cuda_extended import (
     synth_moment_pipeline_from_noise_extended)
 from mlmc_tpu_torch.estimator import (
     Estimate, estimate_domain, estimate_n_samples_for_target_variance,
-    calc_level_params, determine_level_parameters, determine_n_samples)
+    calc_level_params, determine_level_parameters, determine_n_samples,
+    estimate_convergence_rates, richardson_extrapolation)
 from mlmc_tpu_torch.fused_driver import (
     FusedMLMC, level_sim_chunk_fn, sim_level_chunk_fns)
 from mlmc_tpu_torch.tool.simple_distribution import (
@@ -43,4 +50,5 @@ from mlmc_tpu_torch.quantity.quantity_spec import ChunkSpec
 from mlmc_tpu_torch.quantity.quantity_types import (
     QType, ScalarType, BoolType, ArrayType, TimeSeriesType, FieldType, DictType)
 from mlmc_tpu_torch.convert import (
-    accumulators_from_jax, moments_from_jax, storage_from_jax)
+    accumulators_from_jax, field_from_jax, level_config_from_jax,
+    moments_from_jax, storage_from_jax)

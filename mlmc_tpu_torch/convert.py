@@ -2,6 +2,8 @@
 
 The state of a storage-free MLMC run is its per-level accumulators and its
 moment basis; the state of a stored-sample run is its sample storage.
+A simulation level's state is its config with the field modes drawn for
+it, a random field's its decomposition.
 These helpers rebuild them from ``mlmc_tpu`` objects by reading their
 fields and public methods, without importing ``jax`` or ``mlmc_tpu``:
 arrays may be numpy arrays or anything ``numpy.asarray`` accepts. A
@@ -71,9 +73,7 @@ def storage_from_jax(memory, storage=None):
     :return: the filled storage
     """
     storage = Memory() if storage is None else storage
-    result_format = [QuantitySpec(name=q.name, unit=q.unit, shape=tuple(q.shape),
-                                  times=list(q.times), locations=list(q.locations))
-                     for q in memory.load_result_format()]
+    result_format = [_port_spec(q) for q in memory.load_result_format()]
     storage.save_global_data(result_format=result_format,
                              level_parameters=memory.get_level_parameters())
     for lid, tags in memory.load_scheduled_samples().items():
@@ -89,3 +89,72 @@ def storage_from_jax(memory, storage=None):
     storage.save_n_ops([(lid, [float(c), 1.0])
                         for lid, c in enumerate(memory.get_n_ops())])
     return storage
+
+
+def _port_spec(q):
+    return QuantitySpec(name=q.name, unit=q.unit, shape=tuple(q.shape),
+                        times=list(q.times), locations=list(q.locations))
+
+
+#: per-level arrays of an ``mlmc_tpu`` simulation config: the modes and
+#: eigenvalues its ``level_instance`` drew or built
+_LEVEL_ARRAYS = ("_wave_numbers", "_wave_vectors", "_circ_eig")
+
+
+def level_config_from_jax(config_dict, device=None, dtype=None):
+    """An ``mlmc_tpu`` ``LevelSimulation.config_dict`` (of a shooting or
+    diffusion level) as this package's level config, so that both packages
+    simulate the same field modes: ``_wave_numbers``, ``_wave_vectors`` and
+    ``_circ_eig`` become float64 tensors on ``device``, the result format
+    this package's ``QuantitySpec``; every other entry is copied.
+
+    :param device: None = the current CUDA device
+    :param dtype: sets ``config["dtype"]`` ('float32' | 'float64') when given
+    """
+    import copy
+
+    device = resolve_device(device)
+    config = {}
+    for key, value in config_dict.items():
+        if key in _LEVEL_ARRAYS:
+            config[key] = torch.tensor(np.asarray(value, dtype=np.float64),
+                                       device=device)
+        elif key == "res_format":
+            config[key] = [_port_spec(q) for q in value]
+        elif not str(key).startswith("_"):
+            config[key] = copy.deepcopy(value)
+    if dtype is not None:
+        config["dtype"] = str(dtype).replace("torch.", "")
+    return config
+
+
+def field_from_jax(field, device=None, dtype=torch.float64):
+    """An ``mlmc_tpu`` ``SpatialCorrelatedField`` with its points and its
+    decomposition (``_cov_l_factor``, ``_sqrt_ev``) as this package's, so
+    that the same normals give the same realization.
+
+    :param device: None = the current CUDA device
+    """
+    from mlmc_tpu_torch.random.correlated_field import SpatialCorrelatedField
+
+    if type(field).__name__ != "SpatialCorrelatedField":
+        raise TypeError("no decomposition to carry over from %s"
+                        % type(field).__name__)
+    out = SpatialCorrelatedField(
+        corr_exp=field.correlation_exponent, dim=field.dim,
+        corr_length=field._corr_length, mu=0.0, sigma=1.0, log=field.log,
+        device=device, dtype=dtype)
+    out.correlation_tensor = np.asarray(field.correlation_tensor)
+    out._max_corr_length = field._max_corr_length
+    if field.points is not None:
+        out.set_points(np.asarray(field.points), mu=np.asarray(field.mu),
+                       sigma=np.asarray(field.sigma))
+    else:
+        out.mu, out.sigma = field.mu, field.sigma
+    if field.cov_mat is not None:
+        out.cov_mat = np.asarray(field.cov_mat)
+    if field._cov_l_factor is not None:
+        out._cov_l_factor = np.asarray(field._cov_l_factor, dtype=np.float64)
+        out._sqrt_ev = np.asarray(field._sqrt_ev, dtype=np.float64)
+        out._n_approx_terms = int(field._n_approx_terms)
+    return out

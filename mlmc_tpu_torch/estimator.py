@@ -16,9 +16,19 @@
 * the log-quadratic variance regression, the maxent density and the
   domain estimate.
 
+* the bootstrap (``est_bootstrap``, ``est_bootstrap_fast``): every
+  replicate of a level is a row of a weight matrix ``W [B, N]`` over the
+  level's samples (0/1 rows without replacement, counts with replacement,
+  Poisson weights), and the replicate statistics are the two products
+  ``W @ dphi`` and ``W @ dphi^2`` in f64 on the estimation device;
+* the convergence-rate fit and the Richardson extrapolation.
+
 Numbers come back to the host as numpy arrays, as in ``mlmc_tpu``. The
-bootstrap and the plot helpers are not ported yet.
+plot helpers and the bootstrap's ``mesh=`` argument (replicates sharded
+over several devices) are not ported yet.
 """
+import hashlib
+
 import numpy as np
 import torch
 
@@ -48,9 +58,14 @@ class Estimate:
         """Device of the quantity's root: where the estimation runs."""
         return self._quantity.get_quantity_storage().device
 
-    def _resolve_moments(self, moments_fn):
-        """Explicit argument wins over the instance default."""
-        return self._moments_fn if moments_fn is None else moments_fn
+    def _resolve_moments(self, moments_fn, remember=False):
+        """Explicit argument wins over the instance default; ``remember``
+        additionally re-binds the instance default (bootstrap semantics)."""
+        if moments_fn is None:
+            return self._moments_fn
+        if remember:
+            self._moments_fn = moments_fn
+        return moments_fn
 
     def _n_components(self):
         """(is scalar, flat component count M) of the quantity."""
@@ -414,6 +429,266 @@ class Estimate:
         new_vars[1:] = np.exp(np.dot(X, params))
         return new_vars
 
+    def _variance_of_variance(self, n_samples=None):
+        """Variance of the LOG of a chi²_{n-1}-distributed variance
+        estimate, in closed form.
+
+        A sample variance from n draws is sigma²/(n-1) x chi²_{n-1}; for
+        X ~ chi²_d = Gamma(d/2, 2) the log has Var[log X] = psi_1(d/2)
+        (trigamma).
+        """
+        from scipy.special import polygamma
+
+        if n_samples is None:
+            n_samples = self._n_created_samples
+        df = np.maximum(np.asarray(n_samples, dtype=float) - 1.0, 1.0)
+        return polygamma(1, df / 2.0)
+
+    # ------------------------------------------------------------------ #
+    # bootstrap
+    # ------------------------------------------------------------------ #
+    #: byte budget of one block of replicates (its uniforms, its weights
+    #: and their temporaries, all [block, N])
+    BOOTSTRAP_BLOCK_BYTES = 1 << 29
+
+    def est_bootstrap(self, n_subsamples=100, sample_vector=None,
+                      moments_fn=None, regression=False, log=False):
+        """Bootstrap means/vars by repeated level subsampling: the
+        without-replacement scheme of ``est_bootstrap_fast``, which draws
+        the level subsamples that the streaming hypergeometric
+        ``Quantity.subsample`` produces."""
+        self.est_bootstrap_fast(n_subsamples=n_subsamples,
+                                sample_vector=sample_vector,
+                                moments_fn=moments_fn,
+                                regression=regression, log=log)
+
+    @staticmethod
+    def _replicate_generator(generator, seed, level_id, replicate):
+        """Seed ``generator`` for one replicate: its stream is a function
+        of (seed, level id, replicate index) alone, so a replicate does not
+        change with the blocking of the replicates."""
+        digest = hashlib.blake2b(
+            ("%d/%d/%d" % (int(seed), int(level_id), int(replicate))).encode(),
+            digest_size=8).digest()
+        return generator.manual_seed(int.from_bytes(digest, "little") >> 1)
+
+    @staticmethod
+    def _poisson_cdf(lam):
+        """The 12 thresholds of the inverse-CDF Poisson(lam) draw truncated
+        at w = 12 (lam <= 1, so the cut is exact to ~1e-12): the weight of
+        a uniform u is the number of thresholds below it."""
+        from scipy.special import gammaln
+
+        ks = np.arange(13, dtype=np.float64)
+        logpmf = -lam + ks * np.log(max(lam, 1e-30)) - gammaln(ks + 1.0)
+        return np.cumsum(np.exp(logpmf))[:12]
+
+    @staticmethod
+    def _weights_poisson(u, valid, cdf):
+        """Poisson weights [B, N] of uniforms ``u`` [B, N]: the count of
+        ``cdf`` thresholds strictly below u; invalid samples weigh 0."""
+        w = torch.bucketize(u, cdf, right=False).to(u.dtype)
+        return w * valid.to(u.dtype)
+
+    @staticmethod
+    def _weights_from_indices(idx, n):
+        """Pick counts [B, N] of index rows ``idx`` [B, n_sub] (with or
+        without repeats)."""
+        w = torch.zeros(idx.shape[0], int(n), dtype=torch.float64, device=idx.device)
+        return w.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.float64))
+
+    @staticmethod
+    def _replicate_stats(w, flat, n_r):
+        """Replicate means and variances from weights: with
+        ``s = W @ dphi`` and ``sp = W @ dphi^2`` (f64, never TF32),
+        ``mean = s / n_r`` and ``var = (sp - s^2 / n_r) / (n_r - 1)``.
+
+        :param w: weights [B, N]; flat: dphi [N, K]; n_r: replicate sizes [B]
+        :return: (means [B, K], variances [B, K])
+        """
+        s = w @ flat
+        sp = w @ (flat * flat)
+        n_r = n_r[:, None]
+        return s / n_r, (sp - s * s / n_r) / (n_r - 1.0)
+
+    def _bootstrap_rows(self, y, moments_fn, scalar):
+        """One level's values [M, N, C] -> (dphi [N, R(, M)] f64 with
+        invalid lanes zeroed, valid [N]): a sample is invalid when ANY
+        component carries NaN, a failed result or a domain clip."""
+        y = as_tensor(y).to(torch.float64)
+        valid = ~torch.isnan(moments_fn.transform(y)).any(dim=2).any(dim=0)
+        phi = torch.nan_to_num(moments_fn.eval_all(y))       # [M, N, C, R]
+        dphi = (phi[..., 0, :] - phi[..., 1, :] if y.shape[2] > 1
+                else phi[..., 0, :])
+        dphi = dphi.permute(1, 2, 0)                         # [N, R, M]
+        return (dphi[..., 0] if scalar else dphi), valid
+
+    def _bootstrap_level(self, dphi, valid, n_sub, n_valid, B, replace, seed,
+                         level_id):
+        """(means, variances) [B, R(, M)] of one level's B replicates, in
+        blocks of replicates under ``BOOTSTRAP_BLOCK_BYTES``."""
+        N = dphi.shape[0]
+        flat = dphi.reshape(N, -1)
+        device = flat.device
+        gen = torch.Generator(device=device)
+        if replace == "poisson":
+            cdf = torch.from_numpy(self._poisson_cdf(
+                n_sub / max(n_valid, 1))).to(device)
+        elif replace:
+            # valid sample positions packed first: ONE sort per level,
+            # shared by every replicate
+            order = torch.argsort((~valid).to(torch.int8), stable=True)
+        block = int(max(1, min(B, self.BOOTSTRAP_BLOCK_BYTES // (32 * max(N, 1)))))
+        means, variances = [], []
+        for start in range(0, B, block):
+            reps = range(start, min(start + block, B))
+            draws = []
+            for b in reps:
+                self._replicate_generator(gen, seed, level_id, b)
+                if replace is True:
+                    draws.append(torch.randint(0, n_valid, (n_sub,),
+                                               generator=gen, device=device))
+                else:
+                    draws.append(torch.rand(N, generator=gen, device=device,
+                                            dtype=torch.float64))
+            draws = torch.stack(draws)
+            if replace == "poisson":
+                w = self._weights_poisson(draws, valid, cdf)
+                n_r = w.sum(dim=1).clamp(min=2.0)
+            else:
+                if replace:
+                    idx = order[draws]     # uniform over the valid prefix
+                else:
+                    # without replacement: the n_sub largest keys among the
+                    # valid samples (the Gumbel transform of a uniform key
+                    # is increasing, so the uniforms select the same set)
+                    keys = torch.where(valid[None, :], draws,
+                                       torch.full_like(draws, -1.0))
+                    idx = torch.topk(keys, n_sub, dim=1).indices
+                w = self._weights_from_indices(idx, N)
+                n_r = torch.full((len(reps),), float(n_sub),
+                                 dtype=torch.float64, device=device)
+            m, v = self._replicate_stats(w, flat, n_r)
+            means.append(m)
+            variances.append(v)
+        shape = (B,) + tuple(dphi.shape[1:])
+        return (torch.cat(means).reshape(shape).cpu().numpy(),
+                torch.cat(variances).reshape(shape).cpu().numpy())
+
+    def est_bootstrap_fast(self, n_subsamples=100, sample_vector=None,
+                           moments_fn=None, seed=0, regression=False,
+                           log=False, replace=False, mesh=None):
+        """Bootstrap on the estimation device: per level the moment
+        differences ``dphi [N, R]`` are built once, and ``n_subsamples``
+        replicates are drawn over the VALID samples and reduced by two
+        matrix products. Sets ``mean_bs_*``, ``var_bs_*``,
+        ``_bs_level_mean_variance`` (and ``var_bs_log_l_vars`` with
+        ``log``); shapes are [L, R] per level, [L, R, M] for structured
+        quantities.
+
+        :param regression: smooth each replicate's level variances with the
+            log-quadratic variance regression before aggregating
+        :param log: additionally record the spread of the log variances
+        :param replace: resampling scheme.
+
+            * ``False`` (default): without replacement, ``sample_vector[l]``
+              of the valid samples per replicate (a top-k over random keys,
+              a sort of the level per replicate);
+            * ``True``: classical Efron bootstrap, uniform draws with
+              replacement over the valid prefix of one shared stable
+              argsort;
+            * ``'poisson'``: replicate weights ``w_i ~ Poisson(n_sub /
+              n_valid)``, independent across samples (E[sum w] = n_sub;
+              replicate sizes vary by ~sqrt(n_sub)): no sort, no gather.
+        :param seed: replicate b of level l draws from a stream keyed by
+            (seed, l, b)
+        :param mesh: replicates sharded over several devices; not ported
+        """
+        if replace not in (False, True, "poisson"):
+            # an unknown scheme string is truthy and would silently run
+            # the classical bootstrap: reject it instead
+            raise ValueError("replace must be False, True or 'poisson'")
+        if mesh is not None:
+            raise NotImplementedError(
+                "the mesh-sharded bootstrap is not ported yet")
+        moments_fn = self._resolve_moments(moments_fn, remember=True)
+        scalar, _ = self._n_components()
+        n_levels = self._sample_storage.get_n_levels()
+        sample_vector = determine_sample_vec(
+            n_collected_samples=self._sample_storage.get_n_collected(),
+            n_levels=n_levels, sample_vector=sample_vector)
+        B = int(n_subsamples)
+
+        bs_l_means = bs_l_vars = None
+        ns = np.empty(n_levels, dtype=int)
+        # stored values up to each level's true count: the capacity tail
+        # of a device storage is never seen
+        for lvl, y in enumerate(self._gather_level_qoi()):
+            dphi, valid = self._bootstrap_rows(y, moments_fn, scalar)
+            n_valid = int(valid.sum())
+            n_sub = int(min(sample_vector[lvl], n_valid))
+            if n_sub < 1:
+                raise ValueError("bootstrap: level %d has no valid sample" % lvl)
+            ns[lvl] = n_sub
+            means_l, vars_l = self._bootstrap_level(
+                dphi, valid, n_sub, n_valid, B, replace, seed, lvl)
+            if bs_l_means is None:
+                stat_shape = means_l.shape[1:]         # (R,) or (R, M)
+                bs_l_means = np.empty((B, n_levels) + stat_shape)
+                bs_l_vars = np.empty((B, n_levels) + stat_shape)
+            bs_l_means[:, lvl] = means_l
+            bs_l_vars[:, lvl] = vars_l
+        return self._finish_bootstrap(bs_l_means, bs_l_vars, ns, B,
+                                      n_levels, regression, log)
+
+    def _finish_bootstrap(self, bs_l_means, bs_l_vars, ns, B, n_levels,
+                          regression, log):
+        """Aggregate [B, L, ...] replicate statistics into the bootstrap
+        attributes."""
+        if regression:
+            # each replicate's level variances are smoothed by the variance
+            # regression before aggregation
+            steps = np.squeeze(np.asarray(
+                self._sample_storage.get_level_parameters()))
+            for b in range(B):
+                bs_l_vars[b] = self._all_moments_variance_regression(
+                    bs_l_vars[b], steps).reshape(bs_l_vars[b].shape)
+
+        stat_rank = bs_l_vars.ndim - 2
+        ns_bc = np.asarray(ns).reshape((1, n_levels) + (1,) * stat_rank)
+        bs_mean = bs_l_means.sum(axis=1)               # [B, R(, M)]
+        bs_var = (bs_l_vars / ns_bc).sum(axis=1)
+
+        self.mean_bs_mean = bs_mean.mean(axis=0)
+        self.mean_bs_var = bs_var.mean(axis=0)
+        self.mean_bs_l_means = bs_l_means.mean(axis=0)
+        self.mean_bs_l_vars = bs_l_vars.mean(axis=0)
+        self.var_bs_mean = bs_mean.var(axis=0, ddof=1)
+        self.var_bs_var = bs_var.var(axis=0, ddof=1)
+        self.var_bs_l_means = bs_l_means.var(axis=0, ddof=1)
+        self.var_bs_l_vars = bs_l_vars.var(axis=0, ddof=1)
+        if log:
+            with np.errstate(divide="ignore", invalid="ignore"):
+                self.var_bs_log_l_vars = np.nan_to_num(
+                    np.log(np.maximum(bs_l_vars, 1e-300))).var(axis=0,
+                                                               ddof=1)
+        n_coll = np.asarray(self._sample_storage.get_n_collected(), float)
+        self._bs_level_mean_variance = self.var_bs_l_means * n_coll.reshape(
+            (-1,) + (1,) * (self.var_bs_l_means.ndim - 1))
+
+    def bs_target_var_n_estimated(self, target_var, sample_vec=None):
+        """Estimate n_l for a target variance from bootstrapped level vars."""
+        sample_vec = determine_sample_vec(
+            n_collected_samples=self._sample_storage.get_n_collected(),
+            n_levels=self._sample_storage.get_n_levels(),
+            sample_vector=sample_vec,
+        )
+        self.est_bootstrap(n_subsamples=300, sample_vector=sample_vec)
+        variances, n_ops = self.estimate_diff_vars_regression(sample_vec, raw_vars=self.mean_bs_l_vars)
+        return estimate_n_samples_for_target_variance(
+            target_var, variances, n_ops, n_levels=self._sample_storage.get_n_levels()
+        )
+
     @staticmethod
     def estimate_domain(quantity, sample_storage, quantile=None):
         """Moment domain = union of every level's fine-sample quantile
@@ -501,6 +776,14 @@ def determine_level_parameters(n_levels, step_range):
     return calc_level_params(step_range, n_levels)
 
 
+def determine_sample_vec(n_collected_samples, n_levels, sample_vector=None):
+    if sample_vector is None:
+        sample_vector = n_collected_samples
+    if len(sample_vector) > n_levels:
+        sample_vector = sample_vector[:n_levels]
+    return np.array(sample_vector)
+
+
 def determine_n_samples(n_levels, n_samples=None):
     """Per-level target counts: an explicit full vector passes through, a
     [n0] or [n0, nL] prescription expands geometrically (nL defaults to 3)."""
@@ -510,3 +793,66 @@ def determine_n_samples(n_levels, n_samples=None):
     if len(spec) > 2:
         return np.asarray(spec, dtype=int)
     return np.rint(np.geomspace(spec[0], spec[1], n_levels)).astype(int)
+
+
+def estimate_convergence_rates(level_means, level_vars, level_steps,
+                               n_ops=None):
+    """MLMC complexity-theorem rates by log-log least squares over levels.
+
+    Giles' theorem parameters (Giles 2015, Acta Numerica 24): the weak
+    rate ``alpha`` (|E[Y_l]| ~ h^alpha), the variance rate ``beta``
+    (V_l ~ h^beta) and, when measured per-level costs are supplied, the
+    cost rate ``gamma`` (C_l ~ h^-gamma). beta > gamma puts the workload
+    in the optimal O(eps^-2) complexity regime. Level 0 is the coarse
+    anchor and does not follow the asymptotic decay, so fits use levels
+    >= 1.
+
+    :param level_means: per-level telescoped diff means [L] (e.g.
+        ``QuantityMean.l_means`` of the plain quantity)
+    :param level_vars: per-level diff variances [L]
+    :param level_steps: level discretization steps h_l [L] (first entry
+        of each level-parameter vector)
+    :param n_ops: optional measured per-sample cost per level [L]
+    :return: dict with ``alpha``, ``beta`` (and ``gamma``), each the
+        fitted d log(.) / d log(h) slope (sign-adjusted so positive
+        means the textbook decay), plus ``n_fit_levels``
+    """
+    h = np.asarray(level_steps, dtype=float).reshape(len(level_means), -1)[:, 0]
+    m = np.abs(np.asarray(level_means, dtype=float).ravel())
+    v = np.asarray(level_vars, dtype=float).ravel()
+
+    def _fit(y):
+        y1, h1 = y[1:], h[1:]
+        mask = np.isfinite(y1) & (y1 > 0) & np.isfinite(h1) & (h1 > 0)
+        if mask.sum() < 2:
+            return np.nan, int(mask.sum())
+        A = np.stack([np.log(h1[mask]), np.ones(int(mask.sum()))], axis=1)
+        coef, *_ = np.linalg.lstsq(A, np.log(y1[mask]), rcond=None)
+        return float(coef[0]), int(mask.sum())
+
+    alpha, n_fit = _fit(m)
+    beta, _ = _fit(v)
+    rates = {"alpha": alpha, "beta": beta, "n_fit_levels": n_fit}
+    if n_ops is not None:
+        g, _ = _fit(np.asarray(n_ops, dtype=float).ravel())
+        rates["gamma"] = -g if np.isfinite(g) else np.nan
+    return rates
+
+
+def richardson_extrapolation(level_means, level_steps, alpha):
+    """Bias-corrected MLMC mean by Richardson extrapolation.
+
+    For a weak rate alpha and refinement factor r = h_{L-1}/h_L, the
+    remaining discretization bias of the telescoped estimate is
+    ``E[Y_L] / (r^alpha - 1)`` (Giles 2015, eq. 2.8); adding it
+    extrapolates the mean to the h -> 0 limit.
+
+    :return: (extrapolated mean, estimated remaining bias)
+    """
+    m = np.asarray(level_means, dtype=float).ravel()
+    h = np.asarray(level_steps, dtype=float).reshape(len(m), -1)[:, 0]
+    if len(m) < 2 or not np.isfinite(alpha) or alpha <= 0:
+        return float(m.sum()), np.nan
+    r = h[-2] / h[-1]
+    bias = float(m[-1] / (r ** alpha - 1.0))
+    return float(m.sum() + bias), bias

@@ -295,6 +295,65 @@ class Quantity:
         return self._mask_quantity(other, lambda x, y: Quantity._process_mask(x, y, operator.ne))
 
     # ------------------------------------------------------------------ #
+    # subsampling
+    # ------------------------------------------------------------------ #
+    def subsample(self, sample_vec, generator=None):
+        """Streaming subsample: pick exactly ``sample_vec[l]`` samples of
+        level l (all of them if it holds fewer), whatever the chunking.
+
+        For each chunk of a level draw ``Hypergeom(n_remaining,
+        k_remaining, chunk_n)`` columns (Vitter's method S analogue), then
+        that many of the chunk's columns without replacement. The draws
+        run on the host; the picked columns stay on the chunk's device.
+        Eager, and not traceable: the fast tiers refuse such a quantity.
+
+        :param generator: a CPU ``torch.Generator`` that seeds the draws;
+            None takes a seed from the OS
+        """
+        if generator is None:
+            generator = torch.Generator()
+            generator.seed()
+        rng = np.random.default_rng(int(torch.randint(
+            0, 1 << 62, (1,), generator=generator)))
+        n_collected = list(self.get_quantity_storage().n_collected())
+        state = {}
+
+        def reset(level_id):
+            state[level_id] = {
+                "k": min(int(sample_vec[level_id]), int(n_collected[level_id])),
+                "n": int(n_collected[level_id]),
+            }
+
+        class _LevelParams:
+            """Per-chunk handle delivering streaming state for its level."""
+
+            def __init__(self, level_id, chunk_id):
+                if chunk_id in (0, None) or level_id not in state:
+                    reset(level_id)
+                self.level_id = level_id
+
+        params_quantity = _SubsampleParamsQuantity(_LevelParams)
+
+        def pick_samples(chunk, level_params):
+            chunk = as_tensor(chunk)
+            st = state[level_params.level_id]
+            n_chunk = chunk.shape[1]
+            size = int(rng.hypergeometric(st["k"], st["n"] - st["k"], n_chunk)) \
+                if st["n"] > 0 and n_chunk > 0 else 0
+            idx = np.sort(rng.choice(n_chunk, size=size, replace=False))
+            out = chunk[:, torch.from_numpy(idx).to(chunk.device), :]
+            st["k"] -= size
+            st["n"] -= n_chunk
+            return out
+
+        return Quantity(
+            quantity_type=self.qtype.replace_scalar(qt.BoolType()),
+            input_quantities=[self, params_quantity],
+            operation=pick_samples,
+            traceable=False,
+        )
+
+    # ------------------------------------------------------------------ #
     # structured access
     # ------------------------------------------------------------------ #
     def __getitem__(self, key):
@@ -470,6 +529,30 @@ def _install_arithmetic(cls):
 
 
 _install_arithmetic(Quantity)
+
+
+class _SubsampleParamsQuantity:
+    """Internal pseudo-quantity delivering per-chunk subsample state."""
+
+    _storage = None
+    _selection_id = None
+
+    def __init__(self, level_params_cls):
+        self._cls = level_params_cls
+        self.qtype = qt.ScalarType()
+        self._input_quantities = []
+
+    def samples(self, chunk_spec):
+        return self._cls(chunk_spec.level_id, chunk_spec.chunk_id)
+
+    def get_quantity_storage(self):
+        return None
+
+    def selection_id(self):
+        return None
+
+    def traceable(self):
+        return False
 
 
 class QuantityConst(Quantity):

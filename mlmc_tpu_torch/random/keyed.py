@@ -1,0 +1,108 @@
+"""Per-sample random numbers as a function of the sample's identity.
+
+A simulation that needs many random numbers per sample (the phases of a
+spectral force field, the white noise of a circulant embedding) draws them
+from Philox4x32-10 with the pool's seed as key and the counter
+
+    (index low word, index high word, WIDE | level, attempt << 20 | call)
+
+``call`` numbers the sample's Philox calls (four 32-bit words each), so a
+sample may take up to 2^20 calls = 2^22 numbers, on up to 2^12 attempts
+(the attempt wraps past that). ``WIDE`` is bit 31 of the third word: the
+streams of ``ops/cuda_kernels`` (``philox_normals``, kernels A and B, the
+synthetic simulation) put the bare level there, so no counter of this
+module equals one of theirs under the same seed, and two attempts of one
+sample never share a counter.
+
+The numbers depend on (seed, level, index, attempt) alone: how a level is
+cut into batches does not change its samples.
+"""
+import torch
+
+from mlmc_tpu_torch.ops.cuda_kernels import (
+    _MASK32, _TWO_PI_F32, _key_words, _sqrt_f32, philox4x32_10)
+
+WIDE = 1 << 31
+CALL_BITS = 20
+ATTEMPT_MASK = (1 << (32 - CALL_BITS)) - 1
+#: Philox calls evaluated at once (eight int64 temporaries of this size)
+CALLS_PER_BLOCK = 1 << 24
+
+
+def _word_blocks(seed, level_id, indices, attempts, n_calls):
+    """Yield the Philox words [b, n_calls, 4] (int64 holding uint32) of
+    consecutive blocks of samples, ``CALLS_PER_BLOCK`` calls at a time."""
+    n_calls = int(n_calls)
+    if not 1 <= n_calls <= 1 << CALL_BITS:
+        raise ValueError("a sample takes 1 .. 2^%d Philox calls, got %d"
+                         % (CALL_BITS, n_calls))
+    key = _key_words(seed)
+    level_word = WIDE | (int(level_id) & (WIDE - 1))
+    calls = torch.arange(n_calls, dtype=torch.int64, device=indices.device)
+    salt = (attempts & ATTEMPT_MASK) << CALL_BITS
+    step = max(CALLS_PER_BLOCK // n_calls, 1)
+    for start in range(0, indices.shape[0], step):
+        idx = indices[start:start + step, None]
+        c3 = salt[start:start + step, None] | calls[None, :]
+        c0 = (idx & _MASK32).expand_as(c3)
+        c1 = (idx >> 32).expand_as(c3)
+        c2 = torch.full_like(c3, level_word)
+        yield torch.stack(philox4x32_10((c0, c1, c2, c3), key), dim=-1)
+
+
+def _per_sample(blocks, convert, indices, n, dtype):
+    """[B, n] numbers: ``convert`` applied block by block to the words."""
+    parts = [convert(w).reshape(w.shape[0], -1)[:, :int(n)].to(dtype)
+             for w in blocks]
+    if not parts:
+        return torch.empty(0, int(n), dtype=dtype, device=indices.device)
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def keyed_words(seed, level_id, indices, attempts, n_calls):
+    """The 4 * n_calls Philox words of each sample.
+
+    :param indices: int64 tensor [B] of sample indices
+    :param attempts: int64 tensor [B] of retry counts
+    :return: int64 tensor [B, 4 * n_calls] of uint32 words on the indices'
+        device
+    """
+    return _per_sample(_word_blocks(seed, level_id, indices, attempts, n_calls),
+                       lambda w: w, indices, 4 * int(n_calls), torch.int64)
+
+
+def _unit(bits):
+    """Top 24 bits of uint32 words as float32 in [0, 1)."""
+    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def keyed_uniforms(seed, level_id, indices, attempts, n, dtype=torch.float32):
+    """``n`` uniforms in [0, 1) per sample: the top 24 bits of each word.
+
+    :return: tensor [B, n]
+    """
+    return _per_sample(
+        _word_blocks(seed, level_id, indices, attempts, -(-int(n) // 4)),
+        _unit, indices, n, dtype)
+
+
+def _normal_pairs(words):
+    """Box-Muller on word pairs [b, c, 4] -> [b, c, 2, 2] float32 normals
+    (cosine and sine branch of each pair); ``u1`` is offset by half an ulp
+    as in ``ops/cuda_kernels.box_muller``."""
+    w = words.reshape(words.shape[0], -1, 2, 2)
+    r = _sqrt_f32(-2.0 * torch.log(_unit(w[..., 0]) + (0.5 / (1 << 24))))
+    ang = _TWO_PI_F32 * _unit(w[..., 1])
+    return torch.stack((r * torch.cos(ang), r * torch.sin(ang)), dim=-1)
+
+
+def keyed_normals(seed, level_id, indices, attempts, n, dtype=torch.float32):
+    """``n`` standard normals per sample: Box-Muller on word pairs, both
+    the cosine and the sine branch (four normals per Philox call), computed
+    in float32.
+
+    :return: tensor [B, n]
+    """
+    return _per_sample(
+        _word_blocks(seed, level_id, indices, attempts, -(-int(n) // 4)),
+        _normal_pairs, indices, n, dtype)

@@ -7,7 +7,9 @@ cost accounting) keeps the Quantity layer and the Sampler backend-agnostic.
 ``DeviceMemory`` holds each level's payload in one tensor on a CUDA device
 (or on the CPU when asked), so samples made by a ``DeviceBatchPool`` with
 ``device_results=True`` are stored and estimated without crossing to the
-host. The HDF5 and binary-log backends are not ported yet.
+host; both feed the bootstrap and ``Quantity.subsample`` (a ``chunk_size``
+sets the chunking the streaming subsample runs over). The HDF5 and
+binary-log backends (host files, ``h5py``) are not ported yet.
 """
 import itertools
 from abc import ABCMeta, abstractmethod

@@ -6,14 +6,19 @@ The pool contract is kept (``schedule_sample`` / ``get_finished`` /
 
 * ``DeviceBatchPool`` — scheduled sample ids become Philox counters (seed,
   level, index, attempt); a level's pending samples run as whole batches of
-  tensor code on the pool's device and stay there until the storage takes
-  them. NaN results and injected failures become failed samples; renewals
-  re-run with the attempt as salt.
+  tensor code on the pool's device (``calculate_keyed_batch`` of the
+  synthetic, shooting and Darcy simulations) and stay there until the
+  storage takes them. NaN results and injected failures become failed
+  samples, unless the level says ``nan_result_is_failure=False`` (the
+  shooting simulations store NaN as a result); renewals re-run with the
+  attempt as salt.
 * ``OneProcessPool`` — the host loop for simulations without a keyed batch
-  path, with md5(sample_id) seeding.
+  path, with md5(sample_id) seeding; its ``device`` goes to the
+  simulation's ``calculate``.
 
 ``ProcessPool``, ``ThreadPool`` and the per-sample workspace directories
-are not ported yet.
+serve host simulations that shell out to external programs; they are not
+ported yet and come with the file-backed storages.
 """
 import collections
 import hashlib
@@ -68,9 +73,13 @@ class SamplingPool(ABC):
         return np.frombuffer(digest, dtype="uint32")[0]
 
     @staticmethod
-    def calculate_sample(sample_id, level_sim, seed=None):
+    def calculate_sample(sample_id, level_sim, seed=None, device=None):
         """Single-sample wrapper: reproducible seed, wall-time measurement,
-        result-shape validation, exception -> traceback string."""
+        result-shape validation, exception -> traceback string.
+
+        :param device: handed to ``calculate`` when given; None leaves the
+            choice to the simulation (the shooting and Darcy simulations
+            then take the current CUDA device)"""
         if level_sim.need_sample_workspace:
             raise NotImplementedError(
                 "sample workspaces are not ported to mlmc_tpu_torch yet")
@@ -78,7 +87,8 @@ class SamplingPool(ABC):
             seed = SamplingPool.compute_seed(sample_id)
         try:
             start = time.perf_counter()
-            result = level_sim.calculate(level_sim.config_dict, seed)
+            where = {} if device is None else {"device": device}
+            result = level_sim.calculate(level_sim.config_dict, seed, **where)
             elapsed = time.perf_counter() - start
             fine, coarse = result[0], result[1]
             if isinstance(fine, np.ndarray) and isinstance(coarse, np.ndarray):
@@ -97,7 +107,10 @@ class SamplingPool(ABC):
 class OneProcessPool(SamplingPool):
     """Everything runs inline in one process, one sample per call."""
 
-    def __init__(self):
+    def __init__(self, device=None):
+        """:param device: where each sample is computed (see
+            ``calculate_sample``)"""
+        self._device = device
         self._done = {}    # level_id -> [(sample_id, (fine, coarse))]
         self._errors = {}  # level_id -> [(sample_id, message)]
         self._n_running = 0
@@ -105,8 +118,9 @@ class OneProcessPool(SamplingPool):
 
     def schedule_sample(self, sample_id, level_sim):
         self._n_running += 1
-        self._process_result(*SamplingPool.calculate_sample(sample_id, level_sim),
-                             level_sim)
+        self._process_result(
+            *SamplingPool.calculate_sample(sample_id, level_sim, device=self._device),
+            level_sim)
 
     def _process_result(self, sample_id, result, err_msg, elapsed, level_sim):
         lid = level_sim.level_id

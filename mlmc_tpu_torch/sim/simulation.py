@@ -2,15 +2,45 @@
 
 A simulation provides per-level instances and two calculate entry points:
 
-* ``calculate(config, seed)`` — single-sample host path,
+* ``calculate(config, seed[, device])`` — one sample from a seed, for a
+  host loop (``OneProcessPool``), returned as host arrays,
 * ``calculate_batch(config, generator, n, device)`` — a whole level batch
   as tensor code on ``device``, drawing from an explicit generator.
 """
 from abc import ABC, abstractmethod
 from typing import List
 
+import torch
+
 from mlmc_tpu_torch.level_simulation import LevelSimulation
 from mlmc_tpu_torch.quantity.quantity_spec import QuantitySpec
+
+
+def config_dtype(config):
+    """The floating dtype a level's config asks for (``config["dtype"]``:
+    'float32', the default, or 'float64')."""
+    name = str(config.get("dtype", "float32")).replace("torch.", "")
+    if name not in ("float32", "float64"):
+        raise ValueError("dtype must be float32 or float64, got %r" % name)
+    return getattr(torch, name)
+
+
+def generator_on(device):
+    """A fresh generator on ``device``, seeded by the system: what a batch
+    draws from when the caller hands it no generator."""
+    generator = torch.Generator(device=device)
+    generator.seed()
+    return generator
+
+
+def level_cached(config, key, build):
+    """``build()`` once per ``key`` for one level: constants of a level
+    (bases, weighted mode matrices, eigenvalues on a device) live in the
+    level's config under ``"_cache"``."""
+    cache = config.setdefault("_cache", {})
+    if key not in cache:
+        cache[key] = build()
+    return cache[key]
 
 
 class Simulation(ABC):

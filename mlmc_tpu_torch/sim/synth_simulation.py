@@ -153,8 +153,13 @@ class SynthSimulation(Simulation):
                 SynthSimulation._expand_results(config, coarse), failed)
 
     @staticmethod
-    def calculate(config, seed):
-        """Single-sample calculation from an integer seed (host path)."""
+    def calculate(config, seed, device=None):
+        """Single-sample calculation from an integer seed: the host path
+        (a card runs whole batches, ``calculate_keyed_batch``), so
+        ``device`` is None or the CPU."""
+        if device is not None and torch.device(device).type != "cpu":
+            raise ValueError("SynthSimulation.calculate runs on the host, got "
+                             "device=%s" % (device,))
         generator = torch.Generator().manual_seed(int(seed))
         fine, coarse, failed = SynthSimulation.calculate_batch(config, generator, 1)
         if bool(failed[0]):

@@ -21,7 +21,8 @@ grid is built on the host by ``adaptive_panels`` and refreshed between
 Newton restarts; the exp argument is clipped to +-200.
 
 API: ``SimpleDistribution`` (estimate_density_minimize, density, cdf),
-``KL_divergence``, ``L2_distance``, ``detect_treshold_slope_change``,
+``compute_(semi)exact_{moments,cov}``, ``KL_divergence``, ``L2_distance``,
+``detect_treshold_slope_change``,
 ``lsq_reconstruct`` and ``construct_ortogonal_moments``.
 """
 import types
@@ -514,6 +515,67 @@ class SimpleDistribution:
             print("size: {} nits: {} tol: {:5.3g} res: {:5.3g}".format(
                 self.approx_size, result.nit, tol, gnorm))
         return result
+
+
+# ===================================================================== #
+# exact / semi-exact moment helpers (host quadrature)
+# ===================================================================== #
+def compute_exact_moments(moments_fn, density, tol=1e-10):
+    """Moments of an exact density, one adaptive quadrature per moment."""
+    import scipy.integrate as integrate
+
+    a, b = moments_fn.domain
+    integral = np.zeros(moments_fn.size)
+    for i in range(moments_fn.size):
+        def fn(x, i=i):
+            phi = np.asarray(moments_fn.eval_all_np(np.atleast_1d(x)))[..., i][0]
+            return float(phi * np.squeeze(density(x)))
+
+        integral[i] = integrate.quad(fn, a, b, epsabs=tol, limit=EXACT_QUAD_LIMIT)[0]
+    return integral
+
+
+def _semiexact_quadrature(moments_fn, density, tol, power):
+    """(moment rows at the points [Q, R], density x weights [Q]) of one
+    adaptive panel grid refined on density x |last moment|^power."""
+    a, b = moments_fn.domain
+
+    def refine_on(x):
+        moms = np.asarray(moments_fn.eval_all_np(x))
+        return density(x) * np.abs(moms[..., -1]) ** power
+
+    breaks, _ = adaptive_panels(refine_on, a, b, tol=tol, max_panels=256)
+    pts, wts = panels_to_quadrature(breaks)
+    return np.asarray(moments_fn.eval_all_np(pts)), density(pts) * wts
+
+
+def compute_semiexact_moments(moments_fn, density, tol=1e-10):
+    """All moments on one adaptive panel grid."""
+    quad_moments, q_density_w = _semiexact_quadrature(moments_fn, density, tol, 1)
+    return q_density_w @ quad_moments
+
+
+def compute_exact_cov(moments_fn, density, tol=1e-10):
+    """Moment covariance of an exact density, pairwise adaptive quadrature."""
+    import scipy.integrate as integrate
+
+    a, b = moments_fn.domain
+    integral = np.zeros((moments_fn.size, moments_fn.size))
+    for i in range(moments_fn.size):
+        for j in range(i + 1):
+            def fn(x, i=i, j=j):
+                m = np.asarray(moments_fn.eval_all_np(np.atleast_1d(x)))[0]
+                return float(m[i] * m[j] * np.squeeze(density(x)))
+
+            integral[j][i] = integral[i][j] = integrate.quad(
+                fn, a, b, epsabs=tol, limit=EXACT_QUAD_LIMIT)[0]
+    return integral
+
+
+def compute_semiexact_cov(moments_fn, density, tol=1e-10):
+    """Moment covariance on one adaptive panel grid."""
+    quad_moments, q_density_w = _semiexact_quadrature(moments_fn, density, tol, 2)
+    return (quad_moments.T * q_density_w) @ quad_moments
 
 
 def KL_divergence(prior_density, posterior_density, a, b):

@@ -126,3 +126,69 @@ def test_lsq_reconstruct_matches_jax():
     want = jsd.lsq_reconstruct(cov, vals, vecs, 2)
     np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12)
     np.testing.assert_array_equal(got[:, :2], vecs[:, :2])
+
+
+# --------------------------------------------------------------------- #
+# BASELINE config 3: the two-Gaussian target from exact moments
+# --------------------------------------------------------------------- #
+def _two_gaussians():
+    comps = (st.norm(-1.5, 0.6), st.norm(2.0, 1.0))
+    pdf = lambda x: sum(0.5 * c.pdf(x) for c in comps)
+    lo = min(c.ppf(1e-8) for c in comps)
+    hi = max(c.ppf(1 - 1e-8) for c in comps)
+    return pdf, lo, hi
+
+
+def _maxent_from_exact_moments(sd, Legendre, R, **kw):
+    """bench_extra.py's config-3 workload: semiexact covariance and
+    moments, orthogonalize, solve, KL against the exact pdf, residual."""
+    pdf, lo, hi = _two_gaussians()
+    mfn = Legendre(R, (lo, hi))
+    cov = sd.compute_semiexact_cov(mfn, pdf)
+    orto, _ = sd.construct_ortogonal_moments(mfn, cov, tol=1e-13)
+    mu = sd.compute_semiexact_moments(orto, pdf)
+    d = sd.SimpleDistribution(orto, np.stack((mu, np.ones(orto.size)), axis=1),
+                              domain=mfn.domain, **kw)
+    result = d.estimate_density_minimize(tol=1e-10)
+    kl = sd.KL_divergence(pdf, d.density, lo, hi)
+    residual = float(np.linalg.norm(sd.compute_semiexact_moments(orto, d.density) - mu))
+    return result, float(kl), residual, orto.size
+
+
+def test_exact_and_semiexact_helpers_match_jax():
+    """The four compute_* helpers on the same density: 1e-10."""
+    pdf, lo, hi = _two_gaussians()
+    jmf, tmf = jm.Legendre(6, (lo, hi)), tm.Legendre(6, (lo, hi))
+    for name in ("compute_exact_moments", "compute_semiexact_moments",
+                 "compute_exact_cov", "compute_semiexact_cov"):
+        got, want = getattr(tsd, name)(tmf, pdf), getattr(jsd, name)(jmf, pdf)
+        np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-10, err_msg=name)
+    # semiexact == exact to the quadrature's tolerance; moment 0 is the mass
+    np.testing.assert_allclose(tsd.compute_semiexact_moments(tmf, pdf),
+                               tsd.compute_exact_moments(tmf, pdf), atol=1e-9)
+    np.testing.assert_allclose(tsd.compute_semiexact_cov(tmf, pdf),
+                               tsd.compute_exact_cov(tmf, pdf), atol=1e-9)
+    assert abs(tsd.compute_exact_moments(tmf, pdf)[0] - 1.0) < 1e-7
+
+
+def test_config3_at_15_moments_matches_jax():
+    """KL and moment residual within 1% of mlmc_tpu's (the residual, which
+    sits at the quadrature's error, also within 1e-10 absolute)."""
+    j_res, j_kl, j_resid, j_n = _maxent_from_exact_moments(jsd, jm.Legendre, 15)
+    t_res, t_kl, t_resid, t_n = _maxent_from_exact_moments(tsd, tm.Legendre, 15,
+                                                           device="cpu")
+    assert j_res.success and t_res.success and j_n == t_n == 15
+    assert t_kl == pytest.approx(j_kl, rel=1e-2)
+    assert t_resid == pytest.approx(j_resid, rel=1e-2, abs=1e-10)
+
+
+def test_config3_reference_numbers_of_the_chip_script():
+    """chip_smoke.py holds the card's 35-moment result to 10x what
+    mlmc_tpu gives on the CPU in f64; this measures those two numbers and
+    holds the script's constants to them (5%)."""
+    import chip_smoke
+
+    res, kl, resid, n = _maxent_from_exact_moments(jsd, jm.Legendre, 35)
+    assert res.success and n == 35
+    assert chip_smoke.MAXENT35_JAX_KL == pytest.approx(kl, rel=0.05)
+    assert chip_smoke.MAXENT35_JAX_RESIDUAL == pytest.approx(resid, rel=0.05)

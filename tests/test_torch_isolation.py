@@ -41,6 +41,25 @@ root = mt.make_root_quantity(storage, sim.result_format())
 e = mt.Estimate(root["length"][1]["10"][0, 0], storage, mt.Legendre(5, (-4, 4)))
 assert e.estimate_moments_fast()[0][0] == 1.0
 assert e.estimate_moments_extended()[0][0] == 1.0
+e.est_bootstrap_fast(n_subsamples=4, sample_vector=[200, 50], replace="poisson")
+assert e.var_bs_mean[0] == 0.0
+import torch
+gen = torch.Generator().manual_seed(0)
+shoot = mt.ShootingSimulation1D(dict(
+    start_position=(0.0, 0.0), start_velocity=(10.0, 0.0),
+    area_borders=(-100.0, 200.0, -300.0, 400.0), max_time=10.0, complexity=5.0,
+    n_modes=16, fields_params=dict(model="gauss", corr_length=1.0, sigma=0.5,
+                                   log=False)))
+fine, _, _ = mt.ShootingSimulation1D.calculate_batch(
+    shoot.level_instance([0.1], [0.5]).config_dict, gen, 8)
+assert fine.shape == (8, 1)
+darcy = mt.DiffusionSimulation(dict(field_method="circulant", corr_length=0.3))
+fine, _, _ = mt.DiffusionSimulation.calculate_batch(
+    darcy.level_instance([1 / 8], [1 / 4]).config_dict, gen, 4)
+assert fine.shape == (4, 1) and bool((fine > 0).all())
+field = mt.CirculantEmbeddingField(dim=2, corr_length=0.3, grid_shape=(4, 4),
+                                   grid_step=0.25, device="cpu")
+assert field.sample(gen).shape == (16,)
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m in ("jax", "mlmc_tpu") or m.startswith(("jax.", "mlmc_tpu.")))]
 assert not loaded, loaded
@@ -57,16 +76,60 @@ def test_import_without_jax():
 
 
 def test_no_jax_imports_in_sources():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|mlmc_tpu)\b", re.M)
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|mlmc_tpu|sklearn|gstools|h5py)\b", re.M)
     files = sorted((REPO / "mlmc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
+
+
+def _shooting_level():
+    sim = mt.ShootingSimulation1D(dict(
+        start_position=(0.0, 0.0), start_velocity=(10.0, 0.0),
+        area_borders=(-100.0, 200.0, -300.0, 400.0), max_time=10.0,
+        complexity=5.0, n_modes=16,
+        fields_params=dict(model="gauss", corr_length=1.0, sigma=0.5, log=False)))
+    return sim.level_instance([0.1], [0.5]).config_dict
+
+
+def _darcy_level():
+    sim = mt.DiffusionSimulation(dict(field_method="circulant", corr_length=0.3))
+    return sim.level_instance([1 / 8], [1 / 4]).config_dict
+
+
+def _host_estimate():
+    """An Estimate whose quantity's root asks for the card."""
+    sim = mt.SynthSimulation()
+    storage = mt.Memory()
+    storage.save_global_data(result_format=sim.result_format(),
+                             level_parameters=[[0.5]])
+    root = mt.make_root_quantity(storage, sim.result_format())
+    return mt.Estimate(root["length"][1]["10"][0, 0], storage, mt.Legendre(3, (-1, 1)))
 
 
 def _default_device_calls():
     """Entry points called without a device: each must pick the card."""
     x = np.zeros(64, np.float32)
     return {
+        "shooting_calculate_batch": lambda: mt.ShootingSimulation1D.calculate_batch(
+            _shooting_level(), None, 4),
+        "shooting_2d_calculate_batch": lambda: mt.ShootingSimulation2D.calculate_batch(
+            _shooting_level(), None, 4),
+        "diffusion_calculate_batch": lambda: mt.DiffusionSimulation.calculate_batch(
+            _darcy_level(), None, 4),
+        "shooting_calculate": lambda: mt.ShootingSimulation1D.calculate(
+            _shooting_level(), 5),
+        "shooting_2d_calculate": lambda: mt.ShootingSimulation2D.calculate(
+            _shooting_level(), 5),
+        "diffusion_calculate": lambda: mt.DiffusionSimulation.calculate(
+            _darcy_level(), 5),
+        "spatial_field": lambda: mt.SpatialCorrelatedField(dim=2),
+        "spectral_field": lambda: mt.SpectralCorrelatedField(dim=2, mode_no=8),
+        "circulant_field": lambda: mt.CirculantEmbeddingField(
+            dim=2, grid_shape=(4, 4)),
+        "level_config_from_jax": lambda: mt.level_config_from_jax({"fine_n": 4}),
+        "bootstrap_and_subsample": lambda: _host_estimate(),
+
         "synth_mlmc_pipeline": lambda: mt.synth_mlmc_pipeline(
             0, 5, (100,), (0.5,), domain=(-4, 4)),
         "from_noise_numpy": lambda: mt.synth_moment_pipeline_from_noise(
@@ -96,6 +159,26 @@ def test_entry_points_default_to_the_card(name):
         pytest.skip("this machine has a GPU: the call runs on it instead")
     with pytest.raises(RuntimeError, match="is_available"):
         _default_device_calls()[name]()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sim,level,width", [
+    (mt.ShootingSimulation1D, _shooting_level, 1),
+    (mt.ShootingSimulation2D, _shooting_level, 2),
+    (mt.DiffusionSimulation, _darcy_level, 1)])
+def test_simulations_default_to_the_card_on_a_card(sim, level, width):
+    """With a card and nothing named, a batch draws from a fresh generator
+    on the card and stays there; ``calculate`` computes there and returns
+    host arrays, the same for a seed as on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the default device is the card")
+    fine, coarse, failed = sim.calculate_batch(level(), None, 4)
+    assert fine.is_cuda and fine.shape == coarse.shape == (4, width)
+    assert failed.shape == (4,) and not bool(failed.any())
+    on_card, on_host = (sim.calculate(level(), 5, device=d) for d in (None, "cpu"))
+    assert isinstance(on_card[0], np.ndarray) and on_card[0].shape == (width,)
+    np.testing.assert_allclose(on_card[0], on_host[0], rtol=1e-4)   # float32
+    np.testing.assert_allclose(on_card[1], on_host[1], rtol=1e-4)
 
 
 @pytest.mark.parametrize("call", ["rng", "noise", "normals"])
