@@ -45,18 +45,38 @@ Run from the root of a checkout:  python3 chip_smoke.py
       the final mean flux;
    fails unless kernels C and D were launched, and holds them against
    their plain versions at this path's streams;
-6. holds each kernel's outputs at its path's shapes against its plain
+6. the persisted path, with the counters reset just before it: a run that
+   outlives its process, at config 4's size (2^21 + 2^19 + 2^17 samples of
+   24 components, 384 bytes per sample in the file's f64 records),
+   a. Sampler -> DeviceBatchPool(device_results=False) -> SampleStorageBin:
+      the first half of every level, close, everything dropped; the
+      directory reopened by a new storage, pool and sampler, which must find
+      the first half finished and nothing unfinished, and schedule the rest;
+   b. the directory reopened once more and estimated on the card: the
+      generic tier chunk by chunk, the fast tier (kernel C), the f64 tier
+      (kernel D);
+   c. held against the same run kept on the card (DeviceMemory): payloads
+      bit for bit, the kernels' n_valid equal and their sums within
+      1e-12 * S_abs, the generic tier's means to 1e-12 (against the resident
+      payload widened to f64, as the file holds it); kernels C and D
+      against their plain versions at these streams;
+   d. a-c again through SampleStorageHDF where h5py is installed (it says
+      which); the binary log's library is built from its source by one g++
+      call and is never optional;
+   fails unless kernels C and D were launched by each pass;
+7. holds each kernel's outputs at its path's shapes against its plain
    version (kernel C at the e2e, config-4 and structured streams; kernel D
    at the e2e and structured streams, also against an exact f64 summation,
    and two launches of it bit for bit against each other);
-7. times each kernel and its plain version at those shapes and computes
+8. times each kernel and its plain version at those shapes and computes
    each kernel's bound from this run's inputs; kernels C and D also at
    their largest launch, the structured tier's 12 x 5 streams.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout. The last line is {"ok": true, "device": {...}}; the line before
 it lists the kernels with their launch counts (of all the paths, and by
-path under "launches_by_path"), errors, times and bounds; each configuration of the simulations path prints one
+path under "launches_by_path"), errors, times and bounds; each
+configuration of the simulations path, and the persisted path, prints one
 JSON line of its own.
 """
 import json
@@ -1100,15 +1120,273 @@ def simulations_path(torch, dev):
     return counts, {"samples_mlmc": max(errs[0::2]), "samples_ext": max(errs[1::2])}
 
 
+# ------------------------------------------------------------------------ #
+# the persisted path: card -> host -> file -> card (kernels C and D)
+# ------------------------------------------------------------------------ #
+def _persisted_stage(dev, mt, make_storage, counts, expect_before):
+    """One stage of a persisted run, what one process does: open the storage, make a new
+    pool and sampler, require what the file already holds, schedule up to
+    ``counts``, collect, close. Everything is dropped on return."""
+    sim = mt.SynthSimulation(dict(distr="norm", complexity=2))
+    storage = make_storage()
+    # batches of 2^18 under a budget of 64 MiB of un-fetched payload: level
+    # 0 then has, beside its two timing probes, deferred batches that cross
+    # the budget, so the early drain of a host-bound wave runs on the card
+    pool = mt.DeviceBatchPool(seed=3, device_results=False, max_batch=1 << 18,
+                              inflight_bytes=1 << 26, device=dev)
+    sampler = mt.Sampler(storage, pool, sim, C4_LEVELS)
+    if expect_before is not None:
+        got = ([int(n) for n in storage.n_finished()],
+               [int(n) for n in storage.get_n_collected()],
+               [int(n) for n in sampler._n_scheduled_samples])
+        _require(got == (expect_before,) * 3, "reopened run: finished, collected, "
+                 "scheduled %s, expected %s" % (got, expect_before))
+        left = storage.unfinished_ids()
+        _require(len(left) == 0, "reopened run: %d unfinished ids" % len(left))
+    sampler.set_initial_n_samples(counts)
+    sampler.schedule_samples()
+    sampler.ask_sampling_pool_for_samples()
+    _require([int(n) for n in storage.get_n_collected()] == counts,
+             "persisted run collected %s of %s" % (storage.get_n_collected(), counts))
+    storage.close()
+    return pool.n_dispatches, pool.n_blocking_fetches
+
+
+def _persisted_estimates(torch, mt, storage, sim, dev):
+    """The three tiers over ``storage``, through the entry points a user
+    calls; returns (estimate, {tier: (means, vars)}, {tier: seconds})."""
+    mfn = mt.Legendre(8, (-10, 10))
+    root = mt.make_root_quantity(storage, sim.result_format(), device=dev)
+    est = mt.Estimate(root["length"][1]["10"][0, 0], storage, mfn)
+    results, seconds = {}, {}
+    for tier, call in (("generic", lambda: est.estimate_moments(mfn)),
+                       ("fast", est.estimate_moments_fast),
+                       ("f64", est.estimate_moments_extended)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[tier] = tuple(np.asarray(x, dtype=np.float64) for x in call())
+        torch.cuda.synchronize()
+        seconds[tier] = time.perf_counter() - t0
+        _require(results[tier][0][0] == 1.0 and np.all(np.isfinite(results[tier][1])),
+                 "persisted %s tier estimate" % tier)
+    return est, results, seconds
+
+
+def _persisted_run_and_estimate(torch, dev, mt, kind, make_storage, directory):
+    """Steps a and b of the persisted path through one file storage: the
+    run in two stages, then the three tiers over the reopened file.
+    Returns the pass's record and its open storage and estimate."""
+    full = [C4_N0, C4_N0 // 4, C4_N0 // 16]
+    half = [n // 2 for n in full]
+    sim = mt.SynthSimulation(dict(distr="norm", complexity=2))
+    m = sum(int(np.prod(q.shape)) * len(q.times) * len(q.locations)
+            for q in sim.result_format())
+    record_bytes = sum(full) * 2 * m * 8
+
+    # a. run, stop, resume
+    with Phase(torch, "persisted %s: run, stop, resume" % kind) as writing:
+        first = _persisted_stage(dev, mt, make_storage, half, None)
+        second = _persisted_stage(dev, mt, make_storage, full, half)
+    on_disk = sum(os.path.getsize(os.path.join(root_, f))
+                  for root_, _, files in os.walk(directory) for f in files)
+    write_gbs = record_bytes / writing.seconds / 1e9
+    print("persisted %s: %d samples x %d f64 values x 2 = %.4g bytes of records "
+          "(%.4g bytes on disk) written in two stages in %.3f s: %.3f GB/s card -> "
+          "host -> file; pool dispatches %d + %d, blocking fetches %d + %d"
+          % (kind, sum(full), m, record_bytes, on_disk, writing.seconds, write_gbs,
+             first[0], second[0], first[1], second[1]))
+
+    # b. estimate from the file
+    storage = make_storage()
+    n_chunks = sum(1 for _ in storage.chunks())
+    with Phase(torch, "persisted %s: estimate from the file" % kind):
+        est, results, seconds = _persisted_estimates(torch, mt, storage, sim, dev)
+    read_gbs = {tier: record_bytes / t / 1e9 for tier, t in seconds.items()}
+    print("persisted %s: file -> host -> card -> estimate over %d chunks: generic "
+          "tier %.3f s (%.3f GB/s), fast tier (kernel C) %.3f s (%.3f GB/s), f64 tier "
+          "(kernel D) %.3f s (%.3f GB/s)"
+          % (kind, n_chunks, seconds["generic"], read_gbs["generic"], seconds["fast"],
+             read_gbs["fast"], seconds["f64"], read_gbs["f64"]))
+    record = {"storage": kind, "samples": sum(full), "values_per_sample": 2 * m,
+              "record_bytes": record_bytes, "bytes_on_disk": on_disk,
+              "write_s": writing.seconds, "write_GBps": write_gbs,
+              "dispatches": [first[0], second[0]],
+              "blocking_fetches": [first[1], second[1]], "chunks": n_chunks,
+              "estimate_s": seconds, "estimate_GBps": read_gbs}
+    return record, storage, est, results
+
+
+def _persisted_compare(torch, dev, mt, record, storage, est, results, resident):
+    """Step c: one file storage's payload, kernel sums and estimates
+    against the resident run's, and kernels C and D against their plain
+    versions at the file's streams. Adds to ``record``; returns the two
+    kernels' errors against their plain versions."""
+    from mlmc_tpu_torch.ops import cuda_extended as cx
+    from mlmc_tpu_torch.ops import cuda_kernels as ck
+
+    kind = record["storage"]
+    full = [C4_N0, C4_N0 // 4, C4_N0 // 16]
+    res_storage, res_est, res_results = resident
+    with Phase(torch, "persisted %s: file against the resident run" % kind):
+        for level_id in range(len(C4_LEVELS)):
+            kept = res_storage.sample_pairs_level(
+                mt.ChunkSpec(level_id=level_id))                  # [M, N, 1|2]
+            start = 0
+            for spec in storage.chunks(level_id=level_id):
+                part = torch.from_numpy(storage.sample_pairs_level(spec)).to(
+                    device=dev, dtype=kept.dtype)
+                stop = start + part.shape[1]
+                _require(torch.equal(part, kept[:, start:stop]), "persisted %s level "
+                         "%d rows %d:%d differ from the resident run's"
+                         % (kind, level_id, start, stop))
+                start = stop
+            _require(start == kept.shape[1] == full[level_id],
+                     "persisted %s level %d holds %d rows" % (kind, level_id, start))
+        mfn = est._moments_fn
+        streams, res_streams = (e._packed_streams(mfn, [0]) for e in (est, res_est))
+        identical = {}
+        for name, launch, plain_fn, consts in (
+                ("samples_mlmc", ck.samples_mlmc_cuda, ck.samples_mlmc_plain,
+                 ck.transform_constants(mfn.domain)),
+                ("samples_ext", cx.samples_ext_cuda, cx.samples_ext_plain,
+                 ck.transform_constants(mfn.domain, f64=True))):
+            got, want = (launch(st_, mfn.size, basis="legendre", consts=consts,
+                                device=dev) for st_ in (streams, res_streams))
+            s_abs = plain_fn(res_streams, mfn.size, basis="legendre", consts=consts,
+                             absolute=True)
+            _compare(torch, got, want, s_abs, "%s over the %s file against the "
+                     "resident run" % (name, kind))
+            identical[name] = all(torch.equal(a, b) for a, b in zip(got, want))
+        generic_err = 0.0
+        for got, want in zip(results["generic"], res_results["generic"]):
+            # mean[0] is 1: relative to a scale of one
+            generic_err = max(generic_err, float(np.max(np.abs(got - want))))
+        _require(generic_err <= 1e-12, "persisted %s generic tier differs from the "
+                 "resident run's by %.3g" % (kind, generic_err))
+        tier_err = {tier: float(max(np.max(np.abs(g - w)) for g, w in
+                                    zip(results[tier], res_results[tier])))
+                    for tier in ("fast", "f64")}
+        _require(max(tier_err.values()) <= 1e-12, "persisted %s kernel tiers differ "
+                 "from the resident run's: %s" % (kind, tier_err))
+        errs = _streams_vs_plain(torch, dev, est, "the persisted %s streams" % kind)
+    print("persisted %s: every level's payload equals the resident run's bit for bit; "
+          "n_valid of kernels C and D equal; sums bit-identical: %s; generic tier max "
+          "|diff| %.3g (tol 1e-12), fast tier %.3g, f64 tier %.3g"
+          % (kind, identical, generic_err, tier_err["fast"], tier_err["f64"]))
+    storage.close()
+    record.update({"sums_bit_identical": identical,
+                   "generic_max_abs_diff": generic_err,
+                   "fast_max_abs_diff": tier_err["fast"],
+                   "f64_max_abs_diff": tier_err["f64"],
+                   "kernel_vs_plain_max_abs_err": {"samples_mlmc": errs[0],
+                                                   "samples_ext": errs[1]}})
+    return errs
+
+
+def persisted_path(torch, dev):
+    """A run that outlives its process, at BASELINE config 4's size: card ->
+    host -> file in two stages, file -> host -> card -> the three tiers,
+    held against the same run kept on the card. The binary log always; the
+    HDF5 file where ``h5py`` is installed. Returns the path's launch counts
+    and the kernels' errors against their plain versions at its streams."""
+    import shutil
+    import tempfile
+
+    import mlmc_tpu_torch as mt
+    from mlmc_tpu_torch import native
+    from mlmc_tpu_torch.ops import cuda_extended as cx
+    from mlmc_tpu_torch.ops import cuda_kernels as ck
+
+    try:
+        import h5py
+        print("hdf5: h5py %s" % h5py.__version__)
+    except ImportError:
+        h5py = None
+        print("hdf5: h5py not installed on this machine, not run")
+    with Phase(torch, "sample-log library build (one g++ call) + load"):
+        _require(native.available(), "the binary sample log's library did not "
+                 "build:\n%s" % native.build_error())
+    print("sample-log library: %s" % os.path.relpath(native.library_path(), HERE))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    directory = tempfile.mkdtemp(prefix="mlmc_persisted_")
+    passes = [("binary log", lambda: mt.SampleStorageBin(
+        os.path.join(directory, "binlog")), os.path.join(directory, "binlog"))]
+    if h5py is not None:
+        os.mkdir(os.path.join(directory, "hdf5"))
+        passes.append(("hdf5", lambda: mt.SampleStorageHDF(
+            os.path.join(directory, "hdf5", "run.hdf5")),
+            os.path.join(directory, "hdf5")))
+    ck.reset_launch_counts()
+    cx.reset_launch_counts()
+    try:
+        with Phase(torch, "persisted path") as whole:
+            done = []
+            for kind, make_storage, where in passes:
+                before = {**ck.launch_counts(), **cx.launch_counts()}
+                done.append(_persisted_run_and_estimate(torch, dev, mt, kind,
+                                                        make_storage, where))
+                after = {**ck.launch_counts(), **cx.launch_counts()}
+                for name in ("samples_mlmc", "samples_ext"):
+                    _require(after[name] > before[name], "kernel %s was not launched "
+                             "by the persisted %s pass" % (name, kind))
+        counts = {**ck.launch_counts(), **cx.launch_counts()}
+        print("persisted path: %.2f s; kernel launches %s; peak device memory %.3f GB"
+              % (whole.seconds, counts, torch.cuda.max_memory_allocated(dev) / 1e9))
+        # what the files are held against: the same seed, levels and counts,
+        # uninterrupted, kept on the card (launches from here on compare)
+        with Phase(torch, "persisted: the resident run"):
+            sim = mt.SynthSimulation(dict(distr="norm", complexity=2))
+            res_storage = mt.DeviceMemory(device=dev)
+            sampler = mt.Sampler(res_storage, mt.DeviceBatchPool(
+                seed=3, device_results=True, max_batch=1 << 18, device=dev),
+                sim, C4_LEVELS)
+            sampler.set_initial_n_samples([C4_N0, C4_N0 // 4, C4_N0 // 16])
+            sampler.schedule_samples()
+            sampler.ask_sampling_pool_for_samples()
+            res_est, res_results, res_seconds = _persisted_estimates(
+                torch, mt, res_storage, sim, dev)
+            # the generic tier computes in its payload's type: hold the
+            # files' f64 records against the resident f32 payload widened
+            # (exactly) to f64, so that only the chunking differs
+            wide = mt.DeviceMemory(device=dev)
+            wide.save_global_data(result_format=sim.result_format(),
+                                  level_parameters=C4_LEVELS)
+            for level_id in range(len(C4_LEVELS)):
+                payload, n = res_storage.raw_level_payload(level_id)
+                wide.save_samples_bulk(level_id, mt.tags.TagRange(level_id, 0, n),
+                                       payload[:n, 0].double(), payload[:n, 1].double())
+            mfn = res_est._moments_fn
+            wide_root = mt.make_root_quantity(wide, sim.result_format(), device=dev)
+            res_results["generic"] = tuple(
+                np.asarray(x, dtype=np.float64) for x in mt.Estimate(
+                    wide_root["length"][1]["10"][0, 0], wide, mfn).estimate_moments(mfn))
+            del wide, wide_root
+        print("resident run (DeviceMemory): generic tier %.3f s, fast tier %.3f s, "
+              "f64 tier %.3f s" % tuple(res_seconds[t] for t in ("generic", "fast", "f64")))
+        errs = [_persisted_compare(torch, dev, mt, *state,
+                                   (res_storage, res_est, res_results))
+                for state in done]
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    print(json.dumps({"path": "persisted", "levels": C4_LEVELS,
+                      "seconds": whole.seconds, "resident_estimate_s": res_seconds,
+                      "passes": [state[0] for state in done]}))
+    return counts, {"samples_mlmc": max(e[0] for e in errs),
+                    "samples_ext": max(e[1] for e in errs)}
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         _fail("no CUDA device (torch.cuda.is_available() is false)")
-    csrc = os.path.join(HERE, "mlmc_tpu_torch", "csrc")
-    if not all(os.path.isfile(os.path.join(csrc, f))
-               for f in ("synth_mlmc.cu", "samples_mlmc.cu", "moment_gram.cuh")):
-        _fail("run from the root of a checkout: mlmc_tpu_torch/csrc is missing")
+    package = os.path.join(HERE, "mlmc_tpu_torch")
+    if not all(os.path.isfile(os.path.join(package, f))
+               for f in ("csrc/synth_mlmc.cu", "csrc/samples_mlmc.cu",
+                         "csrc/moment_gram.cuh", "native/sample_log.cpp")):
+        _fail("run from the root of a checkout: the sources under mlmc_tpu_torch/ "
+              "are missing")
     sys.path.insert(0, HERE)
     from mlmc_tpu_torch.ops import _build
 
@@ -1124,14 +1402,16 @@ def main():
 
     own = {"storage_free": storage_free_path(torch, dev),
            "stored": stored_path(torch, dev)}
-    counts, errs = simulations_path(torch, dev)
+    later = {"simulations": simulations_path(torch, dev),
+             "persisted": persisted_path(torch, dev)}
     kernels = []
     for path, of_path in own.items():
         for k in of_path:  # launches of every path; errors at every path's streams
-            k["launches_by_path"] = {path: k["launches"],
-                                     "simulations": counts[k["name"]]}
-            k["launches"] += counts[k["name"]]
-            k["max_abs_err"] = max(k["max_abs_err"], errs.get(k["name"], 0.0))
+            k["launches_by_path"] = {path: k["launches"]}
+            for later_path, (counts, errs) in later.items():
+                k["launches_by_path"][later_path] = counts[k["name"]]
+                k["launches"] += counts[k["name"]]
+                k["max_abs_err"] = max(k["max_abs_err"], errs.get(k["name"], 0.0))
             kernels.append(k)
     print(_smi("name,power.limit"))
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,11 @@ sample -> moment kernels written in CUDA for Hopper: the storage-free path
 (``FusedMLMC``, ``synth_mlmc_pipeline``) and the stored-samples path
 (``Sampler`` -> ``DeviceBatchPool`` -> ``DeviceMemory`` -> ``Quantity`` ->
 ``Estimate``), with the synthetic, the shooting-ODE and the Darcy-flow
-simulations and the correlated random fields as tensor code.
+simulations and the correlated random fields as tensor code. Runs that
+outlive the process go through the file-backed storages
+(``SampleStorageHDF``, ``SampleStorageBin``); host simulations run in the
+``OneProcessPool`` / ``ProcessPool`` / ``ThreadPool`` with per-sample
+workspaces.
 
 Module paths and public names mirror ``mlmc_tpu``: the counterpart of
 ``mlmc_tpu/X.py`` is ``mlmc_tpu_torch/X.py``. Importing the package has no
@@ -11,9 +15,12 @@ side effects; the CUDA kernels build at their first launch.
 """
 from mlmc_tpu_torch.moments import (
     Moments, Monomial, Fourier, Legendre, TransformedMoments)
-from mlmc_tpu_torch.random.distributions import Norm, TorchDistr, as_torch_distr
+from mlmc_tpu_torch.random.distributions import (
+    Norm, LogNorm, Uniform, TwoGaussians, TorchDistr, as_torch_distr)
 from mlmc_tpu_torch.sim.simulation import Simulation
 from mlmc_tpu_torch.sim.synth_simulation import SynthSimulation
+from mlmc_tpu_torch.sim.synth_simulation_workspace import (
+    SynthSimulationWorkspace)
 from mlmc_tpu_torch.sim.shooting import ShootingSimulation1D, ShootingSimulation2D
 from mlmc_tpu_torch.sim.diffusion import DiffusionSimulation
 from mlmc_tpu_torch.random.correlated_field import (
@@ -41,8 +48,13 @@ from mlmc_tpu_torch.fused_driver import (
 from mlmc_tpu_torch.tool.simple_distribution import (
     SimpleDistribution, construct_ortogonal_moments)
 from mlmc_tpu_torch.sample_storage import SampleStorage, Memory, DeviceMemory
+from mlmc_tpu_torch.sample_storage_hdf import SampleStorageHDF
+try:  # the native engine builds at first use; only a broken module hides it
+    from mlmc_tpu_torch.sample_storage_bin import SampleStorageBin
+except Exception:  # pragma: no cover
+    SampleStorageBin = None
 from mlmc_tpu_torch.sampling_pool import (
-    SamplingPool, OneProcessPool, DeviceBatchPool)
+    SamplingPool, OneProcessPool, ProcessPool, ThreadPool, DeviceBatchPool)
 from mlmc_tpu_torch.sampler import Sampler
 from mlmc_tpu_torch.quantity.quantity import (
     Quantity, QuantityConst, QuantityMean, QuantityStorage, make_root_quantity)
@@ -52,3 +64,5 @@ from mlmc_tpu_torch.quantity.quantity_types import (
 from mlmc_tpu_torch.convert import (
     accumulators_from_jax, field_from_jax, level_config_from_jax,
     moments_from_jax, storage_from_jax)
+
+__version__ = "0.1.0"

@@ -61,15 +61,18 @@ def moments_from_jax(m):
 
 
 def storage_from_jax(memory, storage=None):
-    """Copy an ``mlmc_tpu`` ``Memory``/``DeviceMemory`` into a storage of
-    this package, so that both packages estimate identical samples.
+    """Copy an ``mlmc_tpu`` storage (``Memory``, ``DeviceMemory``,
+    ``SampleStorageHDF`` or ``SampleStorageBin``: anything that keeps the
+    ``SampleStorage`` contract) into a storage of this package, so that
+    both packages estimate identical samples. A file written by
+    ``mlmc_tpu`` needs no copy: this package's file storages open it.
 
     Carried over: the result format, the level parameters, every level's
     stored (fine, coarse) samples, the scheduled counts and the per-sample
     costs (n_ops). Sample ids are renumbered 0..n-1 per level.
 
-    :param storage: the ``Memory`` or ``DeviceMemory`` to fill; default a
-        new host ``Memory``
+    :param storage: the storage to fill (any of this package's); default
+        a new host ``Memory``
     :return: the filled storage
     """
     storage = Memory() if storage is None else storage
@@ -79,8 +82,8 @@ def storage_from_jax(memory, storage=None):
     for lid, tags in memory.load_scheduled_samples().items():
         storage.save_scheduled_samples(int(lid), TagRange(int(lid), 0, len(tags)))
     for lid, pairs in enumerate(memory.sample_pairs()):
-        if pairs is None:
-            continue
+        if pairs is None or np.size(pairs) == 0:
+            continue                                  # no results on the level
         pairs = np.asarray(pairs)                     # [M, N, 1|2]
         fine = pairs[:, :, 0].T
         coarse = pairs[:, :, 1].T if pairs.shape[2] > 1 else np.zeros_like(fine)

@@ -37,7 +37,8 @@ class Moments:
     """Base class: domain transform + optional log + safe clipping to NaN.
 
     Contract of ``mlmc_tpu.moments.Moments``: ``size``, ``domain``,
-    ``transform``/``inv_transform``, ``eval_all``, ``eval``,
+    ``transform``/``inv_transform``, ``eval_all``, ``eval``, the
+    derivative evaluations ``eval_all_der``/``eval_diff``/``eval_diff2``,
     ``change_size`` and ``__eq__``.
     """
 
@@ -119,6 +120,9 @@ class Moments:
             kwargs["ref_domain"] = self.ref_domain
         return self.__class__(size, self.domain, **kwargs)
 
+    def __call__(self, value):
+        return self._eval_all(value, self.size)
+
     def eval(self, i, value):
         """Value of the i-th moment function."""
         return self._eval_all(value, i + 1)[..., -1]
@@ -131,6 +135,20 @@ class Moments:
         """Vandermonde of the first ``size`` moment functions:
         ``[*value.shape, size]`` on the value's device and dtype."""
         return self._eval_all(value, self.size if size is None else size)
+
+    def eval_all_der(self, value, size=None, degree=1):
+        """``degree``-th derivatives of the moment functions with respect
+        to the reference variable (bases that define them: Legendre)."""
+        return self._eval_all_der(
+            value, self.size if size is None else size, degree)
+
+    def eval_diff(self, value, size=None):
+        """First derivatives through the basis' differentiation matrix."""
+        return self._eval_diff(value, self.size if size is None else size)
+
+    def eval_diff2(self, value, size=None):
+        """Second derivatives through the squared differentiation matrix."""
+        return self._eval_diff2(value, self.size if size is None else size)
 
     def _eval_all(self, value, size):
         return self._eval_ref(self.transform(value), size)
@@ -183,6 +201,23 @@ def polyvander(x, deg):
     return torch.stack(cols, dim=-1)
 
 
+def legendre_diff_mat(size):
+    """d/dx in the Legendre-Vandermonde representation:
+    ``vander @ diff_mat`` evaluates the derivatives of P_0..P_{size-1}
+    (diff_mat[n, n+1::2] = 2n+1)."""
+    mat = np.zeros((size, size))
+    for n in range(size - 1):
+        mat[n, n + 1::2] = 2 * n + 1
+    return mat
+
+
+def _times_matrix(vander, mat):
+    """``vander @ mat`` with the numpy matrix on the Vandermonde's device
+    and dtype."""
+    return vander @ torch.as_tensor(np.ascontiguousarray(mat),
+                                    dtype=vander.dtype, device=vander.device)
+
+
 class Monomial(Moments):
     """Monomial moments on the reference domain (0, 1)."""
 
@@ -195,6 +230,10 @@ class Monomial(Moments):
 
     def _eval_ref_np(self, t, size):
         return np.polynomial.polynomial.polyvander(t, size - 1)
+
+    def eval(self, i, value):
+        """i-th monomial ``t**i`` on the transformed value."""
+        return self.transform(value) ** i
 
 
 class Fourier(Moments):
@@ -227,12 +266,24 @@ class Fourier(Moments):
         out[..., 2::2] = np.sin(kx[..., : R - shorter_sin])
         return out
 
+    def eval(self, i, value):
+        """Single Fourier mode as the original library indexes it: 1 for
+        i == 0, sin((i-1)/2·t) at odd i, cos(i/2·t) at even i."""
+        t = self.transform(value)
+        if i == 0:
+            return torch.ones_like(t)
+        if i % 2 == 1:
+            return torch.sin((i - 1) / 2 * t)
+        return torch.cos(i / 2 * t)
+
 
 class Legendre(Moments):
     """Legendre moments on the reference domain (-1, 1)."""
 
     def __init__(self, size, domain, ref_domain=None, log=False, safe_eval=True):
         self.ref_domain = tuple(ref_domain) if ref_domain is not None else (-1.0, 1.0)
+        self.diff_mat = legendre_diff_mat(size)
+        self.diff2_mat = self.diff_mat @ self.diff_mat
         super().__init__(size, domain, log, safe_eval)
 
     def _eval_ref(self, t, size):
@@ -240,6 +291,18 @@ class Legendre(Moments):
 
     def _eval_ref_np(self, t, size):
         return np.polynomial.legendre.legvander(t, size - 1)
+
+    def _eval_all_der(self, value, size, degree=1):
+        dmat = np.linalg.matrix_power(legendre_diff_mat(size), degree)
+        return _times_matrix(self._eval_all(value, size), dmat)
+
+    def _eval_diff(self, value, size):
+        return _times_matrix(self._eval_all(value, size),
+                             self.diff_mat[:size, :size])
+
+    def _eval_diff2(self, value, size):
+        return _times_matrix(self._eval_all(value, size),
+                             self.diff2_mat[:size, :size])
 
 
 class TransformedMoments(Moments):
@@ -264,11 +327,27 @@ class TransformedMoments(Moments):
     def __hash__(self):
         return hash((type(self).__name__, self.size, hash(self._origin)))
 
+    def _apply(self, orig, size):
+        return _times_matrix(orig, self._transform_mat.T)[..., :size]
+
+    def _eval_ref(self, t, size):
+        return self._apply(self._origin._eval_ref(t, self._origin.size), size)
+
     def _eval_all(self, value, size):
-        orig = self._origin._eval_all(value, self._origin.size)
-        mat = torch.as_tensor(np.ascontiguousarray(self._transform_mat.T),
-                              dtype=orig.dtype, device=orig.device)
-        return (orig @ mat)[..., :size]
+        return self._apply(
+            self._origin._eval_all(value, self._origin.size), size)
+
+    def _eval_all_der(self, value, size, degree=1):
+        return self._apply(self._origin._eval_all_der(
+            value, self._origin.size, degree=degree), size)
+
+    def _eval_diff(self, value, size):
+        return self._apply(
+            self._origin.eval_diff(value, self._origin.size), size)
+
+    def _eval_diff2(self, value, size):
+        return self._apply(
+            self._origin.eval_diff2(value, self._origin.size), size)
 
     def eval_all_np(self, value, size=None):
         """Host-numpy path: origin Vandermonde times the transform."""

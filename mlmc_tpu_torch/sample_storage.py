@@ -8,8 +8,10 @@ cost accounting) keeps the Quantity layer and the Sampler backend-agnostic.
 (or on the CPU when asked), so samples made by a ``DeviceBatchPool`` with
 ``device_results=True`` are stored and estimated without crossing to the
 host; both feed the bootstrap and ``Quantity.subsample`` (a ``chunk_size``
-sets the chunking the streaming subsample runs over). The HDF5 and
-binary-log backends (host files, ``h5py``) are not ported yet.
+sets the chunking the streaming subsample runs over). The file-backed
+backends, for runs that outlive the process, are ``SampleStorageHDF``
+(``sample_storage_hdf.py``) and ``SampleStorageBin``
+(``sample_storage_bin.py``).
 """
 import itertools
 from abc import ABCMeta, abstractmethod
@@ -20,6 +22,22 @@ import torch
 
 from mlmc_tpu_torch.device import resolve_device
 from mlmc_tpu_torch.quantity.quantity_spec import ChunkSpec, QuantitySpec
+
+
+def host_pairs(fine, coarse, n_valid):
+    """The first ``n_valid`` rows of ``fine``/``coarse`` [N, M] (numpy or
+    tensors on any device) as one f64 numpy payload [n_valid, 2, M]: what
+    the host and file storages hold. Narrower floats widen exactly."""
+    def array(x):
+        if isinstance(x, torch.Tensor):
+            x = x[:n_valid].cpu().numpy()
+        return np.asarray(x)[:n_valid]
+
+    fine, coarse = array(fine), array(coarse)
+    out = np.empty((fine.shape[0], 2) + fine.shape[1:], dtype=np.float64)
+    out[:, 0] = fine
+    out[:, 1] = coarse
+    return out
 
 
 def _pow2_at_least(n, floor=1024):
@@ -243,13 +261,7 @@ class Memory(SampleStorage):
 
     def _as_pairs(self, fine, coarse, n_valid):
         """[n, 2, M] payload in this storage's form: f64 numpy on the host."""
-        def array(x):
-            if isinstance(x, torch.Tensor):
-                x = x[:n_valid].cpu().numpy()
-            return np.asarray(x)[:n_valid]
-
-        return np.stack([array(fine), array(coarse)], axis=1).astype(
-            np.float64, copy=False)
+        return host_pairs(fine, coarse, n_valid)
 
     def save_samples_bulk(self, level_id, ids, fine, coarse):
         """``fine``/``coarse`` [N, M]; rows past ``len(ids)`` are not

@@ -91,6 +91,10 @@ class Sampler:
             sims.append(sim)
         return sims
 
+    # the original library's name for the same step
+    def _create_level_sim_objects(self, level_parameters, sim_factory):
+        self._level_sim_objects = self._make_level_sims(level_parameters, sim_factory)
+
     def sample_range(self, n0, nL):
         """Geometric sequence of length n_levels decreasing from n0 to nL."""
         return np.round(np.geomspace(n0, nL, self.n_levels)).astype(np.int64)

@@ -12,16 +12,20 @@ The pool contract is kept (``schedule_sample`` / ``get_finished`` /
   samples, unless the level says ``nan_result_is_failure=False`` (the
   shooting simulations store NaN as a result); renewals re-run with the
   attempt as salt.
-* ``OneProcessPool`` — the host loop for simulations without a keyed batch
-  path, with md5(sample_id) seeding; its ``device`` goes to the
-  simulation's ``calculate``.
-
-``ProcessPool``, ``ThreadPool`` and the per-sample workspace directories
-serve host simulations that shell out to external programs; they are not
-ported yet and come with the file-backed storages.
+* ``OneProcessPool`` / ``ProcessPool`` / ``ThreadPool`` — the host loops
+  for simulations without a keyed batch path (external programs, workspace
+  simulations), with md5(sample_id) seeding. A pool's ``device`` goes to a
+  simulation's ``calculate`` that takes one. ``ProcessPool`` starts its
+  workers with ``spawn`` and has them compute on the CPU: a worker process
+  never initialises CUDA. Simulations that need a directory per sample
+  (``need_sample_workspace``) run inside ``<work_dir>/output/<sample_id>``;
+  failed samples and the first few successful ones are archived there.
 """
 import collections
 import hashlib
+import inspect
+import os
+import shutil
 import sys
 import time
 import traceback
@@ -46,6 +50,76 @@ def _round_up_bucket(n, min_bucket=256):
     return b
 
 
+class _SampleWorkspace:
+    """Per-sample scratch-directory lifecycle for host simulations.
+
+    Each workspace sample runs in ``<output>/<sample_id>`` seeded with the
+    simulation's common files; on completion the directory is dropped,
+    except the first ``KEEP_SUCCESSFUL`` successful samples (archived for
+    inspection) and every failed sample (archived for debugging).
+    """
+
+    FAILED_DIR = "failed"
+    SUCCESSFUL_DIR = "several_successful"
+    KEEP_SUCCESSFUL = 5
+
+    def __init__(self, work_dir=None, debug=False):
+        self.debug = debug
+        self.output_dir = (os.path.join(os.path.abspath(work_dir), "output")
+                           if work_dir is not None else None)
+        for sub in ("", self.FAILED_DIR, self.SUCCESSFUL_DIR):
+            self._fresh_dir(sub)
+
+    def _fresh_dir(self, sub=""):
+        if self.output_dir is None:
+            return None
+        path = os.path.join(self.output_dir, sub)
+        if not self.debug and os.path.exists(path):
+            shutil.rmtree(path)
+        os.makedirs(path, mode=0o775, exist_ok=True)
+        return path
+
+    def default_to_cwd(self):
+        """Late-bind the output dir for pools created without work_dir."""
+        if self.output_dir is None:
+            self.output_dir = os.getcwd()
+
+    def sample_dir(self, sample_id):
+        path = os.path.join(self.output_dir, sample_id)
+        os.makedirs(path, mode=0o775, exist_ok=True)
+        return path
+
+    def enter(self, sample_id, level_sim):
+        """Create + populate the sample dir and chdir into it."""
+        path = self.sample_dir(sample_id)
+        for f in level_sim.common_files or ():
+            shutil.copy(f, path)
+        os.chdir(path)
+
+    def _archive(self, sample_id, sub):
+        target = os.path.join(self.output_dir, sub, sample_id)
+        shutil.rmtree(target, ignore_errors=True)
+        shutil.copytree(self.sample_dir(sample_id), target)
+
+    def finish(self, sample_id, level_sim, failed):
+        """Archive-or-drop the sample dir after the result is in."""
+        if not level_sim.need_sample_workspace or self.output_dir is None:
+            return
+        if failed:
+            self._archive(sample_id, self.FAILED_DIR)
+        elif int(sample_id[-7:]) < self.KEEP_SUCCESSFUL:
+            self._archive(sample_id, self.SUCCESSFUL_DIR)
+        shutil.rmtree(self.sample_dir(sample_id), ignore_errors=True)
+
+
+def _takes_device(calculate):
+    """Whether ``calculate`` has a ``device`` parameter (decided by its
+    signature: catching TypeError would hide a real one)."""
+    params = inspect.signature(calculate).parameters
+    return "device" in params or any(
+        p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values())
+
+
 def _expected_result_len(result_format):
     return int(sum(np.prod(spec.shape) * len(spec.times) * len(spec.locations)
                    for spec in result_format))
@@ -53,6 +127,19 @@ def _expected_result_len(result_format):
 
 class SamplingPool(ABC):
     """Runtime environment for samples."""
+
+    # class attrs under the names scripts of the original library use
+    FAILED_DIR = _SampleWorkspace.FAILED_DIR
+    SEVERAL_SUCCESSFUL_DIR = _SampleWorkspace.SUCCESSFUL_DIR
+    N_SUCCESSFUL = _SampleWorkspace.KEEP_SUCCESSFUL
+
+    def __init__(self, work_dir=None, debug=False):
+        self._workspace = _SampleWorkspace(work_dir, debug)
+        self._debug = debug
+
+    @property
+    def _output_dir(self):
+        return self._workspace.output_dir
 
     @abstractmethod
     def schedule_sample(self, sample_id, level_sim: LevelSimulation):
@@ -73,21 +160,27 @@ class SamplingPool(ABC):
         return np.frombuffer(digest, dtype="uint32")[0]
 
     @staticmethod
-    def calculate_sample(sample_id, level_sim, seed=None, device=None):
+    def calculate_sample(sample_id, level_sim, work_dir=None, seed=None,
+                         device=None):
         """Single-sample wrapper: reproducible seed, wall-time measurement,
         result-shape validation, exception -> traceback string.
 
-        :param device: handed to ``calculate`` when given; None leaves the
-            choice to the simulation (the shooting and Darcy simulations
-            then take the current CUDA device)"""
-        if level_sim.need_sample_workspace:
-            raise NotImplementedError(
-                "sample workspaces are not ported to mlmc_tpu_torch yet")
+        :param work_dir: the pool's output directory; a simulation with
+            ``need_sample_workspace`` runs inside ``work_dir/sample_id``
+        :param device: handed to a ``calculate`` that takes one, when given;
+            None leaves the choice to the simulation (the shooting and
+            Darcy simulations then take the current CUDA device)"""
         if seed is None:
             seed = SamplingPool.compute_seed(sample_id)
+        if level_sim.need_sample_workspace:
+            ws = _SampleWorkspace.__new__(_SampleWorkspace)
+            ws.output_dir = work_dir
+            ws.debug = True  # enter() only; lifecycle handled by the pool
+            ws.enter(sample_id, level_sim)
         try:
             start = time.perf_counter()
-            where = {} if device is None else {"device": device}
+            where = ({"device": device} if device is not None
+                     and _takes_device(level_sim.calculate) else {})
             result = level_sim.calculate(level_sim.config_dict, seed, **where)
             elapsed = time.perf_counter() - start
             fine, coarse = result[0], result[1]
@@ -105,11 +198,20 @@ class SamplingPool(ABC):
 
 
 class OneProcessPool(SamplingPool):
-    """Everything runs inline in one process, one sample per call."""
+    """Everything runs inline in one process, one sample per call.
 
-    def __init__(self, device=None):
-        """:param device: where each sample is computed (see
+    Collection is plain per-level lists: results are produced and drained
+    on the pool owner's thread only (ProcessPool/ThreadPool also process
+    futures inside ``get_finished``), so no lock is needed.
+    """
+
+    def __init__(self, work_dir=None, debug=False, device=None):
+        """:param work_dir: parent of the ``output`` directory of sample
+            workspaces (None: the cwd at the first workspace sample)
+        :param debug: keep every sample directory
+        :param device: where each sample is computed (see
             ``calculate_sample``)"""
+        super().__init__(work_dir=work_dir, debug=debug)
         self._device = device
         self._done = {}    # level_id -> [(sample_id, (fine, coarse))]
         self._errors = {}  # level_id -> [(sample_id, message)]
@@ -118,8 +220,12 @@ class OneProcessPool(SamplingPool):
 
     def schedule_sample(self, sample_id, level_sim):
         self._n_running += 1
+        if level_sim.need_sample_workspace:
+            self._workspace.default_to_cwd()
         self._process_result(
-            *SamplingPool.calculate_sample(sample_id, level_sim, device=self._device),
+            *SamplingPool.calculate_sample(sample_id, level_sim,
+                                           work_dir=self._output_dir,
+                                           device=self._device),
             level_sim)
 
     def _process_result(self, sample_id, result, err_msg, elapsed, level_sim):
@@ -132,9 +238,12 @@ class OneProcessPool(SamplingPool):
             t[1] += 1
         if err_msg:
             self._errors.setdefault(lid, []).append((sample_id, err_msg))
+            self._workspace.finish(sample_id, level_sim, failed=True)
         else:
             self._done.setdefault(lid, []).append(
                 (sample_id, (result[0], result[1])))
+            if not self._debug:
+                self._workspace.finish(sample_id, level_sim, failed=False)
 
     def have_permanent_samples(self, sample_ids):
         return False
@@ -149,6 +258,76 @@ class OneProcessPool(SamplingPool):
     def get_finished(self):
         return (self._drain(self._done), self._drain(self._errors),
                 self._n_running, list(self.times.items()))
+
+
+class ProcessPool(OneProcessPool):
+    """Multi-process local pool via concurrent.futures.
+
+    The workers are started with ``spawn`` (a fork of a process that holds
+    a CUDA context does not survive its first CUDA call) and compute every
+    sample with ``device="cpu"``, whatever device the parent works on.
+    """
+
+    def __init__(self, n_processes, work_dir=None, debug=False):
+        import concurrent.futures
+        import multiprocessing
+
+        super().__init__(work_dir=work_dir, debug=debug, device="cpu")
+        self._executor = concurrent.futures.ProcessPoolExecutor(
+            max_workers=n_processes,
+            mp_context=multiprocessing.get_context("spawn"))
+        self._futures = []
+
+    def schedule_sample(self, sample_id, level_sim):
+        self._n_running += 1
+        if level_sim.need_sample_workspace:
+            self._workspace.default_to_cwd()
+        fut = self._executor.submit(
+            SamplingPool.calculate_sample, sample_id, level_sim,
+            self._output_dir, None, self._device)
+        fut._mlmc_sample_id = sample_id
+        self._futures.append((fut, level_sim))
+
+    def get_finished(self):
+        pending = []
+        for fut, level_sim in self._futures:
+            if not fut.done():
+                pending.append((fut, level_sim))
+                continue
+            try:
+                result = fut.result()
+            except Exception as exc:
+                # executor-level failure (worker died, unpicklable config):
+                # report it as a failed sample instead of crashing collection
+                # and leaving the future to be re-processed on retry
+                sample_id = getattr(fut, "_mlmc_sample_id", "<unknown>")
+                self._process_result(
+                    sample_id, None,
+                    "executor failure: {}".format(exc), 0, level_sim)
+                continue
+            self._process_result(*result, level_sim)
+        self._futures = pending
+        return super().get_finished()
+
+    def close(self):
+        """Wait for the scheduled samples and stop the workers."""
+        self._executor.shutdown(wait=True)
+
+
+class ThreadPool(ProcessPool):
+    """Thread pool for simulations that shell out to external programs:
+    the workers block in subprocess calls, so threads are enough. The
+    threads share the owner's process, so the pool's ``device`` goes
+    through as in ``OneProcessPool``."""
+
+    def __init__(self, n_thread, work_dir=None, debug=False, device=None):
+        import concurrent.futures
+
+        OneProcessPool.__init__(self, work_dir=work_dir, debug=debug,
+                                device=device)
+        self._executor = concurrent.futures.ThreadPoolExecutor(
+            max_workers=n_thread)
+        self._futures = []
 
 
 class DeviceBatchPool(SamplingPool):
@@ -166,9 +345,18 @@ class DeviceBatchPool(SamplingPool):
       cost class)); every other batch is enqueued without waiting, and the
       failure masks of a wave come to the host in ONE blocking fetch.
 
+    :param work_dir, debug: the pools' leading arguments (a batch pool
+        runs no workspace simulation; ``work_dir`` gets its ``output``
+        directory all the same)
     :param seed: Philox key of every sample
+    :param sharding: a sample mesh over several devices; not supported yet,
+        anything but None raises
+    :param bulk: report a batch's successful samples as one ``BulkResults``
+        of arrays; False reports (id, (fine, coarse)) tuples of host rows
     :param device_results: keep result payloads on the device (pair with
         ``DeviceMemory``); only the failure masks cross to the host
+    :param inflight_bytes: this pool's budget of un-fetched host-bound
+        payload (None: ``INFLIGHT_BYTES``)
     :param device: where batches run; None = the current CUDA device
     """
 
@@ -177,10 +365,20 @@ class DeviceBatchPool(SamplingPool):
     #: payload at once (device_results pools are exempt)
     INFLIGHT_BYTES = 1 << 30
 
-    def __init__(self, seed=0, min_bucket=256, max_batch=65536,
-                 device_results=False, device=None):
+    def __init__(self, work_dir=None, debug=False, seed=0, min_bucket=256,
+                 sharding=None, bulk=True, max_batch=65536,
+                 device_results=False, inflight_bytes=None, device=None):
+        super().__init__(work_dir=work_dir, debug=debug)
+        if sharding is not None:
+            raise NotImplementedError(
+                "DeviceBatchPool(sharding=...) needs the multi-device "
+                "modules (parallel/), which mlmc_tpu_torch does not have "
+                "yet; pass sharding=None")
+        self._bulk = bool(bulk)
         self._device_results = bool(device_results)
         self._max_batch = int(max_batch)
+        self._inflight_bytes = int(inflight_bytes if inflight_bytes
+                                   is not None else self.INFLIGHT_BYTES)
         self._seed = int(seed)
         self._device = resolve_device(device)
         self._pending = {}  # level_id -> list[(indices, attempts or None)]
@@ -267,6 +465,12 @@ class DeviceBatchPool(SamplingPool):
             slices.append((sub, att,
                            force or _round_up_bucket(len(sub), self._min_bucket)))
         return slices
+
+    def execute_level(self, level_id):
+        """Run all pending samples of one level as device batches."""
+        recs = [self._dispatch_batch(level_id, *sl)
+                for sl in self._level_slices(level_id)]
+        return self._collect(recs)
 
     def _sync(self):
         if self._device.type == "cuda":
@@ -368,7 +572,14 @@ class DeviceBatchPool(SamplingPool):
         ok = ~failed
         failed_out = [(sid, "result is nan")
                       for sid in format_tags(level_id, idxs[failed]).tolist()]
-        if not failed_out:
+        if not self._bulk:
+            if isinstance(fine, torch.Tensor):
+                fine, coarse = fine.cpu().numpy(), coarse.cpu().numpy()
+            ok_pos = np.flatnonzero(ok)
+            ok_ids = format_tags(level_id, idxs[ok_pos]).tolist()
+            successful = [(sid, (fine[i], coarse[i]))
+                          for sid, i in zip(ok_ids, ok_pos)]
+        elif not failed_out:
             successful = BulkResults(TagArray(level_id, idxs), fine, coarse)
         else:
             keep = (torch.from_numpy(ok).to(fine.device)
@@ -431,7 +642,7 @@ class DeviceBatchPool(SamplingPool):
                 pending_bytes += (rec["fine"].numel() * rec["fine"].element_size()
                                   + rec["coarse"].numel()
                                   * rec["coarse"].element_size())
-                if pending_bytes >= self.INFLIGHT_BYTES:
+                if pending_bytes >= self._inflight_bytes:
                     # host-bound payloads: drain the wave early so the
                     # un-fetched device buffers stay under the budget
                     drain(recs)

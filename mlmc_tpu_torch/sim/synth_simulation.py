@@ -33,7 +33,7 @@ class SynthSimulation(Simulation):
     def __init__(self, config=None):
         """
         :param config: dict with keys
-            distr: TorchDistr | scipy frozen normal | name str
+            distr: TorchDistr | scipy frozen distr | name str
             complexity: cost exponent for n_ops_estimate (default 2)
             nan_fraction: fraction of samples to fail (default 0)
         """
@@ -54,6 +54,17 @@ class SynthSimulation(Simulation):
     def sample_fn(x, h):
         """Simulated QoI for parameter x at step h."""
         return x + h * torch.sqrt(1e-4 + torch.abs(x))
+
+    @staticmethod
+    def sample_fn_no_error(x, h):
+        return x
+
+    @staticmethod
+    def generate_random_samples(distr, seed, size):
+        """Host draw of ``size`` variates shared by fine and coarse."""
+        generator = torch.Generator().manual_seed(int(seed))
+        y = as_torch_distr(distr).sample(generator, (int(size),))
+        return y, y
 
     def level_instance(self, fine_level_params: List[float], coarse_level_params: List[float]):
         config = dict(

@@ -284,6 +284,11 @@ class SimpleDistribution:
         power = np.minimum(np.maximum(power, -200), 200)
         return np.exp(power)
 
+    def density_log(self, value):
+        """log rho(x), without the clamp of ``density``."""
+        moms = self.eval_moments(value)
+        return -np.sum(moms * self.multipliers / self._moment_errs, axis=-1)
+
     def cdf(self, values):
         """CDF at arbitrary query points.
 

@@ -71,6 +71,19 @@ def test_simple_distribution_matches_jax_solver():
     np.testing.assert_allclose(td.cdf(x), jd.cdf(x), rtol=1e-8, atol=1e-12)
 
 
+def test_density_log_matches_jax():
+    """log rho on identical multipliers (those of the JAX solve handed to
+    both): f64, 1e-10 relative; and exp of it is the unclamped density."""
+    jd, _ = _solve(jsd, jm, "jax")
+    td, _ = _solve(tsd, tm, "torch")
+    td.multipliers = np.array(jd.multipliers)
+    x = np.linspace(-3.95, 3.95, 200)
+    np.testing.assert_allclose(td.density_log(x), jd.density_log(x),
+                               rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(np.exp(td.density_log(x)), td.density(x),
+                               rtol=1e-12)
+
+
 def test_torch_and_numpy_backends_agree():
     nd, nres = _solve(tsd, tm, "numpy")
     td, tres = _solve(tsd, tm, "torch")

@@ -110,3 +110,81 @@ def test_eval_all_keeps_float32_and_device():
     out = tm.Legendre(5, (-3.0, 5.0)).eval_all(x)
     assert out.dtype == torch.float32 and out.device == x.device
     assert out.shape == (9, 5)
+
+
+# --------------------------------------------------------------------- #
+# derivatives and single-moment evaluation (f64, 1e-10 relative)
+# --------------------------------------------------------------------- #
+DER_RTOL = 1e-10
+
+
+def _der_close(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(np.nan_to_num(got), np.nan_to_num(want),
+                               rtol=DER_RTOL, atol=1e-12)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_call_is_eval_all(name):
+    x = _values()
+    basis = _bases(tm)[name]
+    assert torch.equal(torch.nan_to_num(basis(torch.from_numpy(x))),
+                       torch.nan_to_num(basis.eval_all(torch.from_numpy(x))))
+    _der_close(basis(x).numpy(), np.asarray(_bases(jm)[name](x)))
+
+
+@pytest.mark.parametrize("size", [1, 2, 6, 25])
+def test_legendre_diff_mat_matches_jax(size):
+    np.testing.assert_array_equal(tm.legendre_diff_mat(size),
+                                  jm.legendre_diff_mat(size))
+    leg_t, leg_j = tm.Legendre(size, (-1, 1)), jm.Legendre(size, (-1, 1))
+    np.testing.assert_array_equal(leg_t.diff_mat, leg_j.diff_mat)
+    np.testing.assert_array_equal(leg_t.diff2_mat, leg_j.diff2_mat)
+
+
+@pytest.mark.parametrize("name", ["legendre", "legendre_log",
+                                  "legendre_noclip", "transformed"])
+@pytest.mark.parametrize("method,kwargs", [
+    ("eval_diff", {}), ("eval_diff2", {}), ("eval_diff", dict(size=3)),
+    ("eval_all_der", dict(degree=1)), ("eval_all_der", dict(degree=2)),
+    ("eval_all_der", dict(size=4, degree=3))])
+def test_derivatives_match_jax(name, method, kwargs):
+    x = _values()
+    want = np.asarray(getattr(_bases(jm)[name], method)(x, **kwargs))
+    got = getattr(_bases(tm)[name], method)(torch.from_numpy(x), **kwargs)
+    assert got.dtype == torch.float64
+    _der_close(got.numpy(), want)
+
+
+def test_eval_diff_is_the_legendre_derivative():
+    """vander @ diff_mat equals the derivative of the Legendre polynomials
+    (numpy's legder), first and second degree."""
+    size = 6
+    basis = tm.Legendre(size, (-1.0, 1.0), safe_eval=False)
+    x = np.linspace(-0.9, 0.9, 7)
+    for degree, got in ((1, basis.eval_diff(x)), (2, basis.eval_all_der(x, degree=2)),
+                        (2, basis.eval_diff2(x))):
+        ref = np.empty((len(x), size))
+        for s in range(size):
+            coef = np.zeros(s + 1)
+            coef[-1] = 1
+            ref[:, s] = np.polynomial.legendre.legval(
+                x, np.polynomial.legendre.legder(coef, degree))
+        np.testing.assert_allclose(got.numpy(), ref, rtol=DER_RTOL, atol=1e-10)
+
+
+@pytest.mark.parametrize("name", ["monomial", "fourier", "legendre"])
+@pytest.mark.parametrize("i", [0, 1, 2, 5])
+def test_single_moment_eval_matches_jax(name, i):
+    x = _values()
+    want = np.asarray(_bases(jm)[name].eval(i, x))
+    got = _bases(tm)[name].eval(i, torch.from_numpy(x))
+    _der_close(got.numpy(), want)
+
+
+def test_bases_without_derivatives_raise_alike():
+    for pkg in (jm, tm):
+        with pytest.raises(AttributeError):
+            pkg.Monomial(4, (0, 1)).eval_diff(np.array([0.5]))

@@ -381,9 +381,10 @@ def test_device_pool_inflight_budget_parity():
     results = []
     for budget in (None, 1):
         storage = mt.Memory()
-        pool = _cpu_pool(seed=6, min_bucket=64, max_batch=128)
-        if budget is not None:
-            pool.INFLIGHT_BYTES = budget    # drain after every batch
+        # a budget of one byte drains after every batch
+        pool = _cpu_pool(seed=6, min_bucket=64, max_batch=128,
+                         inflight_bytes=budget)
+        assert pool._inflight_bytes == (budget or pool.INFLIGHT_BYTES)
         _run_pool(storage, pool, (700, 300))
         results.append(storage.sample_pairs())
     for a, b in zip(*results):
