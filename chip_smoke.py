@@ -64,11 +64,30 @@ Run from the root of a checkout:  python3 chip_smoke.py
       which); the binary log's library is built from its source by one g++
       call and is never optional;
    fails unless kernels C and D were launched by each pass;
-7. holds each kernel's outputs at its path's shapes against its plain
+7. the sharded path (the sample mesh), with the counters reset just before
+   it, each part held against its one-device run:
+   a. the headline (1e8 samples) over SampleMesh([dev, dev]), kernel A once
+      per shard on its index range of every level, and over SampleMesh([dev])
+      inside a one-rank NCCL process group (FileStore in a temporary
+      directory), kernel A once, the accumulators all-reduced by NCCL:
+      counts exact, sums within 1e-13 * S_abs;
+   b. the noise pipeline over two shards at 2^20 normals per level, kernel
+      C once per shard, against one kernel C launch and the plain version;
+   c. DeviceBatchPool(sharding=...) on config 5's Darcy (batches of 1024 at
+      64^2 / 16^2) and on the synthetic simulation: payloads within 1e-10
+      and bit for bit;
+   d. est_bootstrap_fast(replace="poisson", mesh=...) at config 2's stored
+      run (B = 100): within 1e-10 relative;
+   e. FusedMLMC, sharded_mlmc_step and the four drivers (MultilevelCDF,
+      cmlmc, ml2r, UnbiasedMLMC) over the mesh: counts and decisions equal,
+      estimates within 1e-12 relative;
+   fails unless kernel A ran 2 + 1 times and kernel C 2 times; one JSON
+   line with each part's host time and the warm kernel times;
+8. holds each kernel's outputs at its path's shapes against its plain
    version (kernel C at the e2e, config-4 and structured streams; kernel D
    at the e2e and structured streams, also against an exact f64 summation,
    and two launches of it bit for bit against each other);
-8. times each kernel and its plain version at those shapes and computes
+9. times each kernel and its plain version at those shapes and computes
    each kernel's bound from this run's inputs; kernels C and D also at
    their largest launch, the structured tier's 12 x 5 streams.
 
@@ -109,6 +128,13 @@ MAXENT35_JAX_KL = 1.4919e-05
 MAXENT35_JAX_RESIDUAL = 4.985e-09
 DARCY_TARGET_VAR = 1e-6
 DARCY_TARGET_SLACK = 1.1   # the finished run's variance may sit this far above
+# the sharded path: config 5's Darcy batch, the synthetic pool, config 2's
+# stored run, and the drivers at the sizes of mlmc_tpu's mesh tests
+SHARDED_DARCY_N = [1024, 1024]
+SHARDED_SYNTH_N = [1 << 17, 1 << 15]
+C2_N = [1 << 17, 1 << 15]
+SHARDED_CMLMC_EPS = 2e-3
+SHARDED_ML2R_TARGET = 1e-7
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the FP64 rate of
 # the tensor cores (the fastest f64 unit); the int32 rate is 64 lanes per
@@ -1376,6 +1402,370 @@ def persisted_path(torch, dev):
                     "samples_ext": max(e[1] for e in errs)}
 
 
+# ------------------------------------------------------------------------ #
+# the sharded path: the sample mesh (kernels A and C per shard)
+# ------------------------------------------------------------------------ #
+def _keyed_pair(torch, h):
+    """A coupled hierarchy over two keyed normals per sample (the drivers'
+    level contract): E[Y_l] = 2 + 0.5 h_l + 0.3 h_l^2, correction noise
+    ~ h^0.75."""
+    def fn(level, keys):
+        zz = keys.normals(2).double()
+        z, zc = zz[:, 0], zz[:, 1]
+
+        def y(hl):
+            return 2.0 + 0.5 * hl + 0.3 * hl * hl + 0.2 * z + 0.3 * hl ** 0.75 * zc
+        fine = y(h[level])
+        coarse = y(h[level - 1]) if level else 0.0 * z
+        return fine, coarse, torch.ones_like(z, dtype=torch.bool)
+    return fn
+
+
+def _gauss_keyed_pair(torch):
+    def fn(level, keys):
+        xy = keys.normals(2).double()
+        x, y = xy[:, 0], xy[:, 1]
+        fine = x + 0.5 * 2.0 ** (-level) * y
+        coarse = x + 0.5 * 2.0 ** (1 - level) * y if level else 0.0 * x
+        return fine, coarse, torch.ones_like(x, dtype=torch.bool)
+    return fn
+
+
+def _same_decisions(one, shard, keys, what, rtol=1e-12, atol=1e-15):
+    """Integer results equal, floating ones within atol + rtol * |one|."""
+    for k in keys:
+        a, b = np.asarray(one[k]), np.asarray(shard[k])
+        if a.dtype.kind in "iub":
+            _require(a.tolist() == b.tolist(), "%s %s: %s vs %s" % (what, k, a, b))
+        else:
+            _require(np.all(np.abs(a - b) <= atol + rtol * np.abs(a)),
+                     "%s %s: max |difference| %.3g" % (what, k,
+                                                       float(np.max(np.abs(a - b)))))
+
+
+def _sharded_headline(torch, dev, mesh, one, s_abs, what):
+    """The 1e8-sample headline over ``mesh``: kernel A once per shard, held
+    against the one-device run (counts exact, sums within 1e-13*S_abs)."""
+    from mlmc_tpu_torch.ops import cuda_kernels as ck
+    from mlmc_tpu_torch.parallel import sharded_synth_pipeline
+
+    step = sharded_synth_pipeline(mesh, N_MOMENTS, N_PER_LEVEL, LEVEL_STEPS,
+                                  domain=DOMAIN)
+    before = ck.synth_mlmc_cuda.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = step(SEED)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ck.synth_mlmc_cuda.launches - before
+    _require(launches == mesh.n_local, "%s: kernel A launched %d times for %d "
+             "shards" % (what, launches, mesh.n_local))
+    stack = ck.SynthMomentResult(*(torch.stack([getattr(r, f) for r in res])
+                                   for f in ck.SynthMomentResult._fields))
+    _, rel = _compare(torch, stack, one, s_abs, what, rtol=1e-13)
+    print("%s: %d shards, kernel A launched %d times, %.4f s (host clock, first "
+          "call, incl. sync); n_valid equal to the one-device run, max |sharded - "
+          "one device| / S_abs %.3g (tol 1e-13)"
+          % (what, mesh.n_devices, launches, seconds, rel))
+    return stack, seconds
+
+
+def sharded_path(torch, dev):
+    """The sample mesh on the card: the headline over two shards and under
+    a one-rank NCCL group, the noise pipeline over two shards (kernel C),
+    config 5's Darcy pool and the synthetic pool over the mesh, the Poisson
+    bootstrap over the mesh at config 2's stored run, FusedMLMC and the
+    four drivers over the mesh; each held against its one-device run.
+    Returns the path's launch counts and the kernels' errors against their
+    plain versions at its shapes."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    import mlmc_tpu_torch as mt
+    from mlmc_tpu_torch.ops import cuda_extended as cx
+    from mlmc_tpu_torch.ops import cuda_kernels as ck
+    from mlmc_tpu_torch.ops.fused_estimate import accumulators_to_estimates
+    from mlmc_tpu_torch.parallel import (
+        SampleMesh, sharded_mlmc_step, sharded_synth_pipeline,
+        sharded_synth_pipeline_from_noise)
+    from mlmc_tpu_torch.unbiased import synth_unbiased_level_fn
+
+    fine, coarse, has_coarse = ck._ladder(LEVEL_STEPS)
+    out = {"path": "sharded", "shards": 2}
+    # ---- one-device references (outside the counted run) --------------- #
+    with Phase(torch, "sharded: one-device references and plain versions"):
+        one = ck.synth_mlmc_pipeline(SEED, N_MOMENTS, N_PER_LEVEL, LEVEL_STEPS,
+                                     domain=DOMAIN, device=dev)
+        one = ck.SynthMomentResult(*(torch.stack([getattr(r, f) for r in one])
+                                     for f in ck.SynthMomentResult._fields))
+        plain_a, s_abs_a = (ck.synth_mlmc_plain(
+            None, SEED, N_PER_LEVEL, fine, coarse, has_coarse, N_MOMENTS,
+            domain=DOMAIN, device=dev, absolute=a) for a in (False, True))
+        rng = np.random.default_rng(SEED + 7)
+        noise = [torch.from_numpy(rng.normal(size=N_CHECK).astype(np.float32)).to(dev)
+                 for _ in LEVEL_STEPS]
+        one_mesh = SampleMesh([dev], group=False)
+        one_c = sharded_synth_pipeline_from_noise(one_mesh, N_MOMENTS, LEVEL_STEPS,
+                                                  domain=DOMAIN)(*noise)
+        fine_l, coarse_l = [], []
+        for lvl, x in enumerate(noise):
+            err = ck._sqrt_f32(ck._ERR_FLOOR_F32 + x.abs())
+            fine_l.append(x + ck._f32(LEVEL_STEPS[lvl]) * err)
+            coarse_l.append(None if lvl == 0
+                            else x + ck._f32(LEVEL_STEPS[lvl - 1]) * err)
+        streams = ck.pack_streams(fine_l, coarse_l, has_coarse)
+        plain_c, s_abs_c = (ck.samples_mlmc_plain(
+            streams, N_MOMENTS, basis="legendre",
+            consts=ck.transform_constants(DOMAIN), absolute=a) for a in (False, True))
+        stack = lambda res: ck.SynthMomentResult(*(
+            torch.stack([getattr(r, f) for r in res]) for f in ck.SynthMomentResult._fields))
+        one_c = stack(one_c)
+        _compare(torch, one_c, plain_c, s_abs_c, "kernel C, one device, vs plain")
+
+    ck.reset_launch_counts()
+    cx.reset_launch_counts()
+    mesh2 = SampleMesh([dev, dev], group=False)
+    with Phase(torch, "sharded path") as whole:
+        # ---- a. the headline over two shards, then under NCCL ---------- #
+        res2, out["headline_2_shards_s"] = _sharded_headline(
+            torch, dev, mesh2, one, s_abs_a, "sharded headline over [dev, dev]")
+        tmp = tempfile.mkdtemp(prefix="mlmc_nccl_")
+        try:
+            torch.cuda.set_device(dev)
+            dist.init_process_group("nccl", store=dist.FileStore(
+                os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+            mesh_nccl = SampleMesh([dev])
+            _require(mesh_nccl.group is not None and mesh_nccl.backend == "nccl"
+                     and dist.get_backend(mesh_nccl.group) == "nccl",
+                     "the one-rank mesh does not reduce over NCCL")
+            res1, out["headline_nccl_s"] = _sharded_headline(
+                torch, dev, mesh_nccl, one, s_abs_a,
+                "sharded headline, one rank of an NCCL group")
+            per_shard = [ck._per_level(res1)]
+            reduce_s = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mesh_nccl.reduce(per_shard)
+                torch.cuda.synchronize()
+                reduce_s.append(time.perf_counter() - t0)
+            n_values = 5 * (2 * N_MOMENTS + 2 * N_MOMENTS ** 2)
+            buf = torch.zeros(n_values, dtype=torch.float64, device=dev)
+            allreduce_ms = _time_ms(torch, lambda: dist.all_reduce(buf), reps=20)
+            out.update(nccl_reduce_ms=float(np.median(reduce_s)) * 1e3,
+                       nccl_all_reduce_ms=allreduce_ms, all_reduce_values=n_values)
+            print("one-rank NCCL: mesh.reduce of the headline's accumulators %.3f ms "
+                  "(host clock, median of 5); all_reduce of %d f64 values %.4f ms "
+                  "(CUDA events, median of 20)"
+                  % (out["nccl_reduce_ms"], n_values, allreduce_ms))
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            shutil.rmtree(tmp, ignore_errors=True)
+
+        # ---- b. the noise pipeline over two shards (kernel C) ---------- #
+        before = ck.samples_mlmc_cuda.launches
+        t0 = time.perf_counter()
+        res_c = stack(sharded_synth_pipeline_from_noise(
+            mesh2, N_MOMENTS, LEVEL_STEPS, domain=DOMAIN)(*noise))
+        torch.cuda.synchronize()
+        out["noise_2_shards_s"] = time.perf_counter() - t0
+        launches_c = ck.samples_mlmc_cuda.launches - before
+        _require(launches_c == 2, "kernel C launched %d times for 2 shards" % launches_c)
+        _, rel_c1 = _compare(torch, res_c, one_c, s_abs_c,
+                             "sharded noise pipeline vs one kernel C launch", rtol=1e-13)
+        err_c, rel_c = _compare(torch, res_c, plain_c, s_abs_c,
+                                "sharded noise pipeline vs plain")
+        print("sharded noise pipeline: 2 shards x %d normals per level, kernel C "
+              "launched %d times; vs one unsharded launch: n_valid equal, max / S_abs "
+              "%.3g (tol 1e-13); vs plain %.3g (tol 1e-12)"
+              % (N_CHECK // 2, launches_c, rel_c1, rel_c))
+
+        # ---- c. the pools over the mesh: config 5's Darcy, synthetic --- #
+        def pool_run(sim, levels, counts, sharding, seed):
+            storage = mt.DeviceMemory(device=dev)
+            pool = mt.DeviceBatchPool(seed=seed, sharding=sharding, device_results=True,
+                                      max_batch=1 << 20, device=dev)
+            sampler = mt.Sampler(storage, pool, sim, levels)
+            sampler.set_initial_n_samples(counts)
+            sampler.schedule_samples()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sampler.ask_sampling_pool_for_samples()
+            torch.cuda.synchronize()
+            return (storage.sample_pairs(), time.perf_counter() - t0,
+                    (pool.n_dispatches, pool.n_blocking_fetches))
+
+        darcy = mt.DiffusionSimulation(dict(sigma=1.0, corr_length=0.3,
+                                            field_method="circulant"))
+        synth = mt.SynthSimulation(dict(distr="norm", complexity=2))
+        pools = {}
+        for name, sim, levels, counts, atol in (
+                ("darcy", darcy, [[1 / 16], [1 / 64]], SHARDED_DARCY_N, 1e-10),
+                ("synthetic", synth, [[0.1], [0.01]], SHARDED_SYNTH_N, 0.0)):
+            ref, t_one, c_one = pool_run(sim, levels, counts, None, SEED)
+            got, t_mesh, c_mesh = pool_run(sim, levels, counts, mesh2, SEED)
+            dev_max = 0.0
+            for a, b in zip(ref, got):
+                _require(a.shape == b.shape, "%s pool payload shapes" % name)
+                diff = (a.double() - b.double()).abs()
+                same_nan = torch.equal(torch.isnan(a), torch.isnan(b))
+                dev_max = max(dev_max, float(torch.nan_to_num(diff).max()))
+                _require(same_nan and dev_max <= atol, "%s pool over the mesh: max "
+                         "|payload diff| %.3g > %g" % (name, dev_max, atol))
+            pools[name] = dict(n=counts, one_device_s=t_one, mesh_s=t_mesh,
+                               dispatches_fetches_one=c_one, dispatches_fetches_mesh=c_mesh,
+                               max_abs_diff=dev_max)
+            print("%s pool, %s samples: one device %.3f s (dispatches, blocking fetches "
+                  "%s), over [dev, dev] %.3f s (%s); max |payload diff| %.3g (tol %g)"
+                  % (name, counts, t_one, c_one, t_mesh, c_mesh, dev_max, atol))
+        out["pools"] = pools
+
+        # ---- d. the Poisson bootstrap over the mesh (config 2) --------- #
+        shoot = mt.ShootingSimulation1D(dict(
+            start_position=(0.0, 0.0), start_velocity=(10.0, 0.0),
+            area_borders=(-100.0, 200.0, -300.0, 400.0), max_time=10.0,
+            complexity=20.0, n_modes=256,
+            fields_params=dict(model="gauss", corr_length=1.0, sigma=0.5, log=False)))
+        storage = mt.DeviceMemory(device=dev)
+        sampler = mt.Sampler(storage, mt.DeviceBatchPool(
+            seed=9, device_results=True, device=dev), shoot, [[0.1], [0.02]])
+        sampler.set_initial_n_samples(C2_N)
+        sampler.schedule_samples()
+        sampler.ask_sampling_pool_for_samples()
+        q = mt.make_root_quantity(storage, shoot.result_format())["target"][10]["0"][0]
+        est = mt.Estimate(q, storage, mt.Legendre(5, mt.estimate_domain(q, storage, 0.01)))
+        boot = {}
+        for name, mesh in (("one_device", None), ("mesh", mesh2)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            est.est_bootstrap_fast(n_subsamples=100, sample_vector=[n // 2 for n in C2_N],
+                                   seed=SEED, replace="poisson", mesh=mesh)
+            torch.cuda.synchronize()
+            boot[name] = (time.perf_counter() - t0,
+                          {k: getattr(est, k).copy() for k in (
+                              "mean_bs_mean", "var_bs_mean", "mean_bs_l_vars",
+                              "var_bs_l_vars")})
+        boot_dev = max(float(np.max(np.abs(boot["mesh"][1][k] - v)
+                                    / np.maximum(np.abs(v), 1e-300)))
+                       for k, v in boot["one_device"][1].items())
+        _require(boot_dev <= 1e-10, "Poisson bootstrap over the mesh: relative "
+                 "deviation %.3g > 1e-10" % boot_dev)
+        out.update(bootstrap_one_device_s=boot["one_device"][0],
+                   bootstrap_mesh_s=boot["mesh"][0], bootstrap_max_rel_dev=boot_dev)
+        print("Poisson bootstrap (config 2, B=100): one device %.3f s, over [dev, dev] "
+              "%.3f s (host clock); max relative deviation %.3g (tol 1e-10)"
+              % (boot["one_device"][0], boot["mesh"][0], boot_dev))
+
+        # ---- e. FusedMLMC, the fused step and the four drivers --------- #
+        t0 = time.perf_counter()
+        fns = [mt.SynthSimulation.scalar_batch_fn(h, c, mt.Norm())
+               for h, c in zip(fine, coarse)]
+        mfn = mt.Legendre(7, DOMAIN)
+        fused = []
+        for mesh in (None, mesh2):
+            drv = mt.FusedMLMC(fns, mfn, seed=SEED, chunk_size=1 << 16, mesh=mesh,
+                               device=dev)
+            for lvl, n in enumerate((400_000, 150_000, 50_000, 20_000, 8_000)):
+                drv._run_level(lvl, n)
+                drv._run_level(lvl, n // 3)
+            fused.append(drv.estimates())
+        # 1e-13 * S_abs per sample: |phi| <= 1 on the domain, so S_abs / n <= 4
+        _same_decisions(*fused, ("n_samples", "mean", "cov"), "FusedMLMC over the mesh",
+                        rtol=0.0, atol=4e-13)
+        step_fns = fns[:2]
+        steps = [mt.fused_mlmc_moments(step_fns, mfn, 3, [4096, 1024], chunk_size=256,
+                                       device=dev),
+                 sharded_mlmc_step(mesh2, step_fns, mfn, [4096, 1024], chunk_size=256)(3)]
+        _same_decisions(*(accumulators_to_estimates(s) for s in steps),
+                        ("n_samples", "mean", "cov"), "sharded_mlmc_step",
+                        rtol=0.0, atol=4e-13)
+        out["fused_s"] = time.perf_counter() - t0
+
+        drivers = {}
+        h3 = [0.5, 0.25, 0.125]
+        steps12 = [0.5 ** k for k in range(12)]
+        runs = {
+            "cdf": lambda mesh: _cdf_run(mt, _gauss_keyed_pair(torch), mesh, dev),
+            "cmlmc": lambda mesh: mt.cmlmc(
+                _keyed_pair(torch, steps12), steps12, eps=SHARDED_CMLMC_EPS, seed=6, n_stages=2,
+                n_pilot=1 << 10, chunk_size=1 << 10, cost_fn=lambda lv: 2.0 ** lv,
+                mesh=mesh, device=dev),
+            "ml2r": lambda mesh: mt.ml2r(
+                _keyed_pair(torch, h3), h3, target_var=SHARDED_ML2R_TARGET, alpha=1.0, seed=4,
+                chunk_size=1 << 10, n_pilot=1 << 11, cost_fn=lambda lv: 2.0 ** lv,
+                mesh=mesh, device=dev),
+            "unbiased": lambda mesh: _unbiased_run(mt, synth_unbiased_level_fn, mesh, dev),
+        }
+        keys = {"cdf": ("n_samples", "cdf", "pdf"),
+                "cmlmc": ("n_levels", "n_per_level", "mean", "level_means"),
+                "ml2r": ("n_per_level", "rounds", "mean", "mean_mlmc"),
+                "unbiased": ("levels", "n_samples", "mean", "var_per_draw")}
+        for name, run in runs.items():
+            t1 = time.perf_counter()
+            a = run(None)
+            t2 = time.perf_counter()
+            b = run(mesh2)
+            t3 = time.perf_counter()
+            _same_decisions(a, b, keys[name], "%s over the mesh" % name)
+            drivers[name] = dict(one_device_s=t2 - t1, mesh_s=t3 - t2)
+        out["drivers"] = drivers
+        print("FusedMLMC and sharded_mlmc_step over [dev, dev]: counts equal, estimates "
+              "within 1e-12 relative (%.2f s); drivers over the mesh against one device, "
+              "decisions equal and means within 1e-12 relative: %s"
+              % (out["fused_s"], {k: {kk: round(vv, 3) for kk, vv in v.items()}
+                                  for k, v in drivers.items()}))
+    counts = {**ck.launch_counts(), **cx.launch_counts()}
+    out.update(seconds=whole.seconds, launches=counts)
+    _require(counts["synth_mlmc"] == 3 and counts["samples_mlmc"] == 2,
+             "sharded path launches %s: kernel A must run once per shard (2 + 1), "
+             "kernel C once per shard (2)" % counts)
+    # ---- warm times, after the counted run (CUDA events, median of 5) -- #
+    step2 = sharded_synth_pipeline(mesh2, N_MOMENTS, N_PER_LEVEL, LEVEL_STEPS,
+                                   domain=DOMAIN)
+    out.update(
+        headline_one_device_ms=_time_ms(torch, lambda: ck.synth_mlmc_pipeline(
+            SEED, N_MOMENTS, N_PER_LEVEL, LEVEL_STEPS, domain=DOMAIN, device=dev)),
+        headline_2_shards_ms=_time_ms(torch, lambda: step2(SEED)),
+        noise_one_device_ms=_time_ms(torch, lambda: sharded_synth_pipeline_from_noise(
+            one_mesh, N_MOMENTS, LEVEL_STEPS, domain=DOMAIN)(*noise)),
+        noise_2_shards_ms=_time_ms(torch, lambda: sharded_synth_pipeline_from_noise(
+            mesh2, N_MOMENTS, LEVEL_STEPS, domain=DOMAIN)(*noise)))
+    print("warm (CUDA events, median of 5): the headline on one device %.3f ms, over "
+          "[dev, dev] %.3f ms; the noise pipeline (5 x 2^20 normals) on one device "
+          "%.3f ms, over [dev, dev] %.3f ms"
+          % (out["headline_one_device_ms"], out["headline_2_shards_ms"],
+             out["noise_one_device_ms"], out["noise_2_shards_ms"]))
+    err_a = 0.0
+    for name in ("sums", "sums2", "cov_fine", "cov_coarse"):
+        diff = (getattr(res2, name) - getattr(plain_a, name)).abs()
+        err_a = max(err_a, float(diff.max()))
+        _require(bool(torch.all(diff <= 1e-12 * getattr(s_abs_a, name).clamp(min=1.0))),
+                 "sharded headline %s vs plain > 1e-12*S_abs" % name)
+    print("sharded path: %.2f s; kernel launches %s" % (whole.seconds, counts))
+    print(json.dumps(out))
+    return counts, {"synth_mlmc": err_a, "samples_mlmc": err_c}
+
+
+def _cdf_run(mt, pair, mesh, dev):
+    m = mt.MultilevelCDF(pair, 3, np.linspace(-3.0, 3.0, 41), 0.1, seed=13,
+                         chunk_size=1 << 10, mesh=mesh, device=dev)
+    for lv in range(3):
+        m.extend(lv, 2048)
+    return m.estimates()
+
+
+def _unbiased_run(mt, make_fn, mesh, dev):
+    fn, _ = make_fn(mean=1.0)
+    m = mt.UnbiasedMLMC(fn, mt.GeometricLevels(0.4), estimator="single", seed=21,
+                        chunk_size=1 << 10, cost_fn=lambda lv: 2.0 ** lv,
+                        mesh=mesh, device=dev)
+    m.sample(3000)
+    return m.estimates()
+
+
 def main():
     import torch
 
@@ -1403,7 +1793,8 @@ def main():
     own = {"storage_free": storage_free_path(torch, dev),
            "stored": stored_path(torch, dev)}
     later = {"simulations": simulations_path(torch, dev),
-             "persisted": persisted_path(torch, dev)}
+             "persisted": persisted_path(torch, dev),
+             "sharded": sharded_path(torch, dev)}
     kernels = []
     for path, of_path in own.items():
         for k in of_path:  # launches of every path; errors at every path's streams

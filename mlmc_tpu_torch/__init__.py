@@ -7,7 +7,8 @@ simulations and the correlated random fields as tensor code. Runs that
 outlive the process go through the file-backed storages
 (``SampleStorageHDF``, ``SampleStorageBin``); host simulations run in the
 ``OneProcessPool`` / ``ProcessPool`` / ``ThreadPool`` with per-sample
-workspaces.
+workspaces. The sample mesh (``parallel``) spreads samples over several
+devices and processes.
 
 Module paths and public names mirror ``mlmc_tpu``: the counterpart of
 ``mlmc_tpu/X.py`` is ``mlmc_tpu_torch/X.py``. Importing the package has no
@@ -56,11 +57,43 @@ except Exception:  # pragma: no cover
 from mlmc_tpu_torch.sampling_pool import (
     SamplingPool, OneProcessPool, ProcessPool, ThreadPool, DeviceBatchPool)
 from mlmc_tpu_torch.sampler import Sampler
+from mlmc_tpu_torch.parallel import (
+    SampleMesh, sample_mesh, sharded_mlmc_step, sharded_synth_pipeline,
+    sharded_synth_pipeline_from_noise)
+
+
+class SamplingPoolPBS(DeviceBatchPool):
+    """Compatibility shim for scripts written against the PBS-cluster
+    pool: there is no batch-queue backend, cluster fan-out is the sample
+    mesh. ``SamplingPoolPBS(work_dir, clean=...)`` is a DeviceBatchPool
+    sharded over every visible CUDA device (or over ``device`` alone);
+    the PBS options are ignored. See ``parallel.multihost`` for several
+    processes.
+    """
+
+    def __init__(self, work_dir=None, clean=None, debug=False, device=None,
+                 **pbs_kwargs):
+        import warnings
+
+        warnings.warn(
+            "SamplingPoolPBS is a compatibility shim: samples run as a "
+            "sharded device batch, PBS options are ignored",
+            DeprecationWarning, stacklevel=2)
+        del clean, pbs_kwargs
+        mesh = SampleMesh(None if device is None else [device])
+        super().__init__(work_dir=work_dir, debug=debug, sharding=mesh,
+                         device=device)
+
+
 from mlmc_tpu_torch.quantity.quantity import (
     Quantity, QuantityConst, QuantityMean, QuantityStorage, make_root_quantity)
 from mlmc_tpu_torch.quantity.quantity_spec import ChunkSpec
 from mlmc_tpu_torch.quantity.quantity_types import (
     QType, ScalarType, BoolType, ArrayType, TimeSeriesType, FieldType, DictType)
+from mlmc_tpu_torch.cdf_estimate import MultilevelCDF, simulation_pair_fn
+from mlmc_tpu_torch.cmlmc import cmlmc
+from mlmc_tpu_torch.ml2r import ml2r, ml2r_weights
+from mlmc_tpu_torch.unbiased import UnbiasedMLMC, GeometricLevels
 from mlmc_tpu_torch.convert import (
     accumulators_from_jax, field_from_jax, level_config_from_jax,
     moments_from_jax, storage_from_jax)

@@ -24,8 +24,7 @@
 * the convergence-rate fit and the Richardson extrapolation.
 
 Numbers come back to the host as numpy arrays, as in ``mlmc_tpu``. The
-plot helpers and the bootstrap's ``mesh=`` argument (replicates sharded
-over several devices) are not ported yet.
+plot helpers are not ported yet.
 """
 import hashlib
 
@@ -523,10 +522,11 @@ class Estimate:
         dphi = dphi.permute(1, 2, 0)                         # [N, R, M]
         return (dphi[..., 0] if scalar else dphi), valid
 
-    def _bootstrap_level(self, dphi, valid, n_sub, n_valid, B, replace, seed,
-                         level_id):
-        """(means, variances) [B, R(, M)] of one level's B replicates, in
-        blocks of replicates under ``BOOTSTRAP_BLOCK_BYTES``."""
+    def _bootstrap_level(self, dphi, valid, n_sub, n_valid, replicates,
+                         replace, seed, level_id):
+        """(means, variances) [len(replicates), R(, M)] tensors of one
+        level's ``replicates`` (a range of replicate indices), on dphi's
+        device, in blocks of replicates under ``BOOTSTRAP_BLOCK_BYTES``."""
         N = dphi.shape[0]
         flat = dphi.reshape(N, -1)
         device = flat.device
@@ -538,10 +538,11 @@ class Estimate:
             # valid sample positions packed first: ONE sort per level,
             # shared by every replicate
             order = torch.argsort((~valid).to(torch.int8), stable=True)
+        B = len(replicates)
         block = int(max(1, min(B, self.BOOTSTRAP_BLOCK_BYTES // (32 * max(N, 1)))))
         means, variances = [], []
-        for start in range(0, B, block):
-            reps = range(start, min(start + block, B))
+        for start in range(replicates.start, replicates.stop, block):
+            reps = range(start, min(start + block, replicates.stop))
             draws = []
             for b in reps:
                 self._replicate_generator(gen, seed, level_id, b)
@@ -572,8 +573,7 @@ class Estimate:
             means.append(m)
             variances.append(v)
         shape = (B,) + tuple(dphi.shape[1:])
-        return (torch.cat(means).reshape(shape).cpu().numpy(),
-                torch.cat(variances).reshape(shape).cpu().numpy())
+        return torch.cat(means).reshape(shape), torch.cat(variances).reshape(shape)
 
     def est_bootstrap_fast(self, n_subsamples=100, sample_vector=None,
                            moments_fn=None, seed=0, regression=False,
@@ -602,22 +602,31 @@ class Estimate:
               replicate sizes vary by ~sqrt(n_sub)): no sort, no gather.
         :param seed: replicate b of level l draws from a stream keyed by
             (seed, l, b)
-        :param mesh: replicates sharded over several devices; not ported
+        :param mesh: a ``parallel.SampleMesh`` (``replace='poisson'``
+            only): the B replicates split into equal shares over the
+            shards, each drawn and reduced on its shard's device; a
+            replicate's weights are those of the one-device run
         """
         if replace not in (False, True, "poisson"):
             # an unknown scheme string is truthy and would silently run
             # the classical bootstrap: reject it instead
             raise ValueError("replace must be False, True or 'poisson'")
+        B = int(n_subsamples)
         if mesh is not None:
-            raise NotImplementedError(
-                "the mesh-sharded bootstrap is not ported yet")
+            if replace != "poisson":
+                raise ValueError(
+                    "mesh-sharded bootstrap runs on the packed "
+                    "replace='poisson' path (traceable quantity, all "
+                    "levels populated)")
+            if B % mesh.n_devices:
+                raise ValueError("n_subsamples=%d must divide by the "
+                                 "mesh's %d devices" % (B, mesh.n_devices))
         moments_fn = self._resolve_moments(moments_fn, remember=True)
         scalar, _ = self._n_components()
         n_levels = self._sample_storage.get_n_levels()
         sample_vector = determine_sample_vec(
             n_collected_samples=self._sample_storage.get_n_collected(),
             n_levels=n_levels, sample_vector=sample_vector)
-        B = int(n_subsamples)
 
         bs_l_means = bs_l_vars = None
         ns = np.empty(n_levels, dtype=int)
@@ -630,8 +639,18 @@ class Estimate:
             if n_sub < 1:
                 raise ValueError("bootstrap: level %d has no valid sample" % lvl)
             ns[lvl] = n_sub
-            means_l, vars_l = self._bootstrap_level(
-                dphi, valid, n_sub, n_valid, B, replace, seed, lvl)
+            if mesh is None:
+                means_l, vars_l = self._bootstrap_level(
+                    dphi, valid, n_sub, n_valid, range(B), replace, seed, lvl)
+            else:
+                share = B // mesh.n_devices
+                parts = [self._bootstrap_level(
+                    dphi.to(device), valid.to(device), n_sub, n_valid,
+                    range(s * share, (s + 1) * share), replace, seed, lvl)
+                    for s, device in mesh.local_shards()]
+                means_l, vars_l = (mesh.gather([p[k] for p in parts])
+                                   for k in range(2))
+            means_l, vars_l = means_l.cpu().numpy(), vars_l.cpu().numpy()
             if bs_l_means is None:
                 stat_shape = means_l.shape[1:]         # (R,) or (R, M)
                 bs_l_means = np.empty((B, n_levels) + stat_shape)

@@ -4,10 +4,12 @@
 Geometric initial counts, level-variance estimation, variance-optimal
 allocation ``n_l ∝ sqrt(V_l/C_l)``, iterate until the target variance is
 met — over streaming moment accumulators: samples are drawn, pushed
-through the moment pipeline and reduced on the device, never stored. Each
-level draws from its own ``torch.Generator`` seeded from (seed, level); an
-extra round continues that generator's stream, so no sample is redrawn and
-the final estimate uses every sample drawn.
+through the moment pipeline and reduced on the device, never stored. A
+chunk of a level draws from a generator seeded from (seed, level, its
+first sample index), and an extra round continues at the level's count
+(as JAX's ``start_index``), so no sample is redrawn, the final estimate
+uses every sample drawn, and a sample mesh (``mesh=``) splits the chunks
+over its shards without changing them.
 """
 import time
 
@@ -17,8 +19,7 @@ import torch
 from mlmc_tpu_torch import estimator as est_mod
 from mlmc_tpu_torch.device import resolve_device
 from mlmc_tpu_torch.ops.fused_estimate import (
-    MomentAccumulators, accumulators_to_estimates, fused_level_moments,
-    level_generator)
+    MomentAccumulators, accumulators_to_estimates, fused_level_moments)
 
 
 def level_sim_chunk_fn(level_sim, component=0, calc_batch=None):
@@ -59,42 +60,54 @@ class FusedMLMC:
     :param sim_chunk_fns: per-level ``f(generator, n, device) -> (fine,
         coarse, failed)``
     :param moments_fn: moment basis
-    :param seed: level l draws from ``level_generator(seed, l, device)``
+    :param seed: a chunk of level l draws from ``chunk_generator(seed, l,
+        its first sample index)``
     :param chunk_size: samples per loop step
     :param acc_dtype: accumulator dtype
-    :param device: where samples are drawn and reduced; None = the
-        current CUDA device
+    :param mesh: a ``parallel.SampleMesh``: each round's chunks of a level
+        are strided over the shards (chunk ``i * D + s`` on shard ``s``)
+        and the accumulators summed over the mesh
+    :param device: where samples are drawn and reduced without a mesh;
+        None = the current CUDA device (with a mesh: its first device)
     """
 
     def __init__(self, sim_chunk_fns, moments_fn, seed=0, chunk_size=1 << 16,
-                 acc_dtype=torch.float64, device=None):
+                 acc_dtype=torch.float64, mesh=None, device=None):
         self._fns = list(sim_chunk_fns)
         self._moments_fn = moments_fn
         self._seed = int(seed)
         self._chunk = int(chunk_size)
         self._acc_dtype = acc_dtype
-        self._device = resolve_device(device)
+        self._mesh = mesh
+        self._device = (resolve_device(device) if mesh is None
+                        else mesh.devices[0])
         self.n_levels = len(self._fns)
-        self._generators = [level_generator(self._seed, lvl, self._device)
-                            for lvl in range(self.n_levels)]
         self._n_drawn = [0] * self.n_levels
         self._accs = [None] * self.n_levels
         self._cost_per_sample = [0.0] * self.n_levels
 
     def _sync(self):
-        if self._device.type == "cuda":
+        if self._mesh is not None:
+            self._mesh.synchronize()
+        elif self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
 
     def _run_level(self, level, n_new):
         """Draw n_new more samples on a level, continuing its stream."""
         if n_new <= 0:
             return
+        if self._mesh is None:
+            shards, n_shards = [(0, self._device)], 1
+        else:
+            shards, n_shards = self._mesh.local_shards(), self._mesh.n_devices
         self._sync()
         t0 = time.perf_counter()
-        acc = fused_level_moments(
-            self._fns[level], self._moments_fn, self._generators[level],
+        per_shard = [fused_level_moments(
+            self._fns[level], self._moments_fn, (self._seed, level),
             int(n_new), self._chunk, is_level0=(level == 0),
-            acc_dtype=self._acc_dtype, device=self._device)
+            acc_dtype=self._acc_dtype, start_index=self._n_drawn[level],
+            shard=s, n_shards=n_shards, device=d) for s, d in shards]
+        acc = per_shard[0] if self._mesh is None else self._mesh.reduce(per_shard)
         self._sync()
         elapsed = time.perf_counter() - t0
         if acc.sums.ndim != 1:
@@ -142,11 +155,11 @@ class FusedMLMC:
         return distr_obj, info, result, orto
 
     # ------------------------------------------------------------------ #
-    # checkpoint / resume: accumulators + stream positions, with the keys
-    # that mlmc_tpu's save_state writes, plus each generator's state
+    # checkpoint / resume: accumulators and stream positions, with the
+    # keys that mlmc_tpu's save_state writes
     # ------------------------------------------------------------------ #
     def save_state(self, path):
-        """Checkpoint accumulators, counts and generator states to .npz."""
+        """Checkpoint accumulators and counts to .npz."""
         state = {"n_drawn": np.asarray(self._n_drawn),
                  "cost": np.asarray(self._cost_per_sample)}
         for lvl, acc in enumerate(self._accs):
@@ -154,15 +167,13 @@ class FusedMLMC:
                 continue
             for field, value in acc._asdict().items():
                 state["acc{}_{}".format(lvl, field)] = value.detach().cpu().numpy()
-        for lvl, gen in enumerate(self._generators):
-            state["gen{}_state".format(lvl)] = gen.get_state().numpy()
         np.savez(path, **state)
 
     def load_state(self, path):
         """Resume from a checkpoint written by this class or by
-        ``mlmc_tpu.FusedMLMC.save_state``. Without stored generator states
-        (an mlmc_tpu checkpoint, whose samples came from another generator)
-        the levels continue on fresh generators."""
+        ``mlmc_tpu.FusedMLMC.save_state``: each level continues at its
+        ``n_drawn``. (An mlmc_tpu checkpoint's samples came from JAX's
+        keys; the continued samples are this package's.)"""
         data = np.load(path)
         self._n_drawn = [int(v) for v in data["n_drawn"]]
         self._cost_per_sample = [float(v) for v in data["cost"]]
@@ -175,10 +186,6 @@ class FusedMLMC:
                     for f in fields))
             else:
                 self._accs[lvl] = None
-            gen_key = "gen{}_state".format(lvl)
-            self._generators[lvl] = level_generator(self._seed, lvl, self._device)
-            if gen_key in data:
-                self._generators[lvl].set_state(torch.from_numpy(data[gen_key]))
 
     def run(self, target_var, initial_n=(1000, 100), add_coeff=0.1,
             max_rounds=50):

@@ -222,12 +222,15 @@ def level_moments_plain(x, n_moments, *, fine_step, coarse_step, has_coarse,
 
 
 def synth_mlmc_plain(x_levels, seed, n_per_level, fine_steps, coarse_steps,
-                     has_coarse, n_moments, *, domain, device, absolute=False):
+                     has_coarse, n_moments, *, domain, device, absolute=False,
+                     starts=None):
     """Plain version of kernel A for all levels; stacked SynthMomentResult.
 
     :param x_levels: per-level f32 tensors (memory mode) or None (draw the
         normals of ``seed``, as RNG mode does)
     :param absolute: return the sums of absolute terms (S_abs) instead
+    :param starts: RNG mode: the first sample index of each level
+        (default 0): level l draws indices starts[l] .. starts[l] + n_l - 1
     """
     L = len(n_per_level)
     R = n_moments
@@ -239,10 +242,11 @@ def synth_mlmc_plain(x_levels, seed, n_per_level, fine_steps, coarse_steps,
     n_valid = torch.zeros(L, dtype=torch.int64, device=device)
     for lvl in range(L):
         n = int(n_per_level[lvl])
+        first = 0 if starts is None else int(starts[lvl])
         for start in range(0, n, PLAIN_CHUNK):
             m = min(PLAIN_CHUNK, n - start)
             if x_levels is None:
-                x = philox_normals(seed, lvl, start, m, device=device)
+                x = philox_normals(seed, lvl, first + start, m, device=device)
             else:
                 x = x_levels[lvl][start:start + m]
             s, s2, cf, cc, nv = level_moments_plain(
@@ -280,21 +284,24 @@ def _gram_partial_size(codes):
     return codes.shape[0] * 128 + 2 * R_PAD
 
 
-def _block_tables(n_per_level, x_offsets, has_coarse, span=SPAN):
+def _block_tables(n_per_level, x_offsets, has_coarse, span=SPAN, starts=None):
     """Per-block (level, start, count, x offset) and per-level (first
     block, block count); a zero-sample level keeps one empty block, so
     its outputs are written as zeros. The blocks of levels with a coarse
     part come first: they cost about twice as much as fine-only blocks,
-    and started last they would leave the card's last wave half empty."""
+    and started last they would leave the card's last wave half empty.
+    ``starts`` offsets each level's sample indices (the RNG counter;
+    default 0), not its x offsets."""
     blocks, lvl_blocks = [], [None] * len(n_per_level)
     order = sorted(range(len(n_per_level)), key=lambda lvl: not has_coarse[lvl])
     for lvl in order:
         n = int(n_per_level[lvl])
         n_blk = max(-(-n // span), 1)
         lvl_blocks[lvl] = (len(blocks), n_blk)
+        first = 0 if starts is None else int(starts[lvl])
         for b in range(n_blk):
             start = b * span
-            blocks.append((lvl, start, max(min(span, n - start), 0),
+            blocks.append((lvl, first + start, max(min(span, n - start), 0),
                            int(x_offsets[lvl]) + start))
     return (np.asarray(blocks, dtype=np.int64),
             np.asarray(lvl_blocks, dtype=np.int64))
@@ -306,11 +313,13 @@ def _check(code, what):
 
 
 def synth_mlmc_cuda(x, seed, n_per_level, fine_steps, coarse_steps,
-                    has_coarse, n_moments, *, domain, device):
+                    has_coarse, n_moments, *, domain, device, starts=None):
     """Launch kernel A (and its per-level reduction) on ``device``.
 
     :param x: flat f32 CUDA tensor of all levels' samples, level after
         level (memory mode), or None (RNG mode)
+    :param starts: RNG mode: the first sample index of each level (the
+        Philox counter of its first sample; default 0)
     :return: stacked SynthMomentResult (float64, int64 counts)
     """
     device = cuda_device(device)
@@ -325,7 +334,8 @@ def synth_mlmc_cuda(x, seed, n_per_level, fine_steps, coarse_steps,
             raise ValueError("x holds %d samples, levels need %d"
                              % (x.numel(), sum(int(n) for n in n_per_level)))
     offsets = np.concatenate([[0], np.cumsum([int(n) for n in n_per_level])])
-    blocks, lvl_blocks = _block_tables(n_per_level, offsets[:-1], has_coarse)
+    blocks, lvl_blocks = _block_tables(n_per_level, offsets[:-1], has_coarse,
+                                       starts=starts)
     lvl = np.asarray([(_f32(f), _f32(c), 1.0 if h else 0.0) for f, c, h in
                       zip(fine_steps, coarse_steps, has_coarse)],
                      dtype=np.float32)
@@ -579,7 +589,7 @@ def reset_launch_counts():
 # public entry points (mlmc_tpu.ops.pallas_kernels names)
 # --------------------------------------------------------------------- #
 def _synth_levels(x_levels, seed, n_per_level, fine_steps, coarse_steps,
-                  has_coarse, n_moments, domain, device):
+                  has_coarse, n_moments, domain, device, starts=None):
     """Dispatch on the device: kernel A on CUDA, the plain version on CPU."""
     if not 1 <= n_moments <= R_PAD:
         raise ValueError("n_moments must be in [1, %d], got %d"
@@ -589,10 +599,10 @@ def _synth_levels(x_levels, seed, n_per_level, fine_steps, coarse_steps,
             [xl.reshape(-1) for xl in x_levels]).contiguous()
         return synth_mlmc_cuda(x, seed, n_per_level, fine_steps, coarse_steps,
                                has_coarse, n_moments, domain=domain,
-                               device=device)
+                               device=device, starts=starts)
     return synth_mlmc_plain(x_levels, seed, n_per_level, fine_steps,
                             coarse_steps, has_coarse, n_moments,
-                            domain=domain, device=device)
+                            domain=domain, device=device, starts=starts)
 
 
 def _per_level(stacked):
@@ -608,7 +618,7 @@ def _ladder(level_steps):
 
 
 def synth_mlmc_pipeline(seed, n_moments, n_per_level, level_steps, *,
-                        domain, device=None):
+                        domain, device=None, starts=None):
     """The whole multi-level synthetic estimate in one kernel launch.
 
     :param seed: integer seed of the Philox stream
@@ -616,16 +626,23 @@ def synth_mlmc_pipeline(seed, n_moments, n_per_level, level_steps, *,
     :param level_steps: fine steps; level l's coarse step is
         level_steps[l-1] and level 0 has no coarse part
     :param domain: moment domain (a, b) mapped onto [-1, 1]
+    :param starts: the first sample index of each level (default 0):
+        level l reduces samples starts[l] .. starts[l] + n_l - 1 of its
+        stream, so a level split into index ranges (the shards of a
+        sample mesh) draws the samples of the whole
     :return: list of SynthMomentResult (float64 sums, int64 n_valid)
     """
     if len(n_per_level) != len(level_steps):
         raise ValueError(
             "n_per_level has %d entries but level_steps has %d"
             % (len(n_per_level), len(level_steps)))
+    if starts is not None and len(starts) != len(level_steps):
+        raise ValueError("starts has %d entries but level_steps has %d"
+                         % (len(starts), len(level_steps)))
     fine, coarse, has_coarse = _ladder(level_steps)
     return _per_level(_synth_levels(
         None, seed, [int(n) for n in n_per_level], fine, coarse, has_coarse,
-        int(n_moments), domain, resolve_device(device)))
+        int(n_moments), domain, resolve_device(device), starts=starts))
 
 
 def _as_f32_tensor(x, device):

@@ -1,8 +1,8 @@
 """Fused sample -> moment estimation for any batch simulation.
 
 Counterpart of ``mlmc_tpu/ops/fused_estimate.py``: samples are drawn chunk
-by chunk from a level's generator, pushed through the moment basis and
-reduced to per-level accumulators; they are never stored.
+by chunk, each chunk from a generator of its own, pushed through the
+moment basis and reduced to per-level accumulators; they are never stored.
 
     generator --sample_chunk_fn--> (fine, coarse, failed)   [C]
               --eval_all---------> (phi_f, phi_c)           [C, R]
@@ -10,8 +10,11 @@ reduced to per-level accumulators; they are never stored.
               --reduce-----------> sums [R], sums2 [R], cov_f, cov_c [R, R]
 
 The chunk loop carries a Kahan compensation across chunks and folds it in
-at the end, as the JAX loop does. Plain PyTorch: the JAX package runs this
-path through XLA, not through a Pallas kernel.
+at the end, as the JAX loop does. A chunk's samples are a function of
+(seed, level, the chunk's first sample index), so a level continued later,
+or split over the shards of a sample mesh, draws the same samples. Plain
+PyTorch: the JAX package runs this path through XLA, not through a Pallas
+kernel.
 """
 from typing import NamedTuple
 
@@ -32,9 +35,12 @@ class MomentAccumulators(NamedTuple):
     n_total: torch.Tensor       # [] processed-sample count
 
 
-def level_generator(seed, level, device=None):
-    """The generator of one level's stream, seeded from (seed, level)."""
-    state = np.random.SeedSequence([int(seed), int(level)]).generate_state(
+def chunk_generator(seed, level, first_index, device=None):
+    """The generator of one chunk of a level's stream, seeded from (seed,
+    level, the chunk's first sample index): a chunk's samples depend on
+    where it starts, not on which shard draws it or when."""
+    state = np.random.SeedSequence(
+        [int(seed), int(level), int(first_index)]).generate_state(
         1, dtype=np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state))
 
@@ -59,29 +65,43 @@ def _any_nan(x):
     return torch.isnan(x.reshape(x.shape[0], -1)).any(dim=1)
 
 
-def fused_level_moments(sample_chunk_fn, moments_fn, generator, n_samples,
+def fused_level_moments(sample_chunk_fn, moments_fn, level_key, n_samples,
                         chunk_size, *, is_level0, acc_dtype=torch.float64,
-                        device=None):
+                        start_index=0, shard=0, n_shards=1, device=None):
     """Stream one level's samples through the fused moment pipeline.
+
+    Chunk ``c`` holds samples ``start_index + c * chunk_size ...`` and
+    draws from ``chunk_generator(seed, level, its first index)``; shard
+    ``s`` of ``n_shards`` takes chunks ``s, s + n_shards, ...`` (JAX's
+    stride layout), so the samples do not depend on the shard count.
 
     :param sample_chunk_fn: ``f(generator, n, device) -> (fine, coarse,
         failed)``; fine/coarse are [n] for a scalar QoI or [n, M]
     :param moments_fn: moment basis (Moments instance)
-    :param generator: this level's generator; drawing continues its stream
-    :param n_samples: samples to draw on this level
+    :param level_key: (seed, level) of the level's stream
+    :param n_samples: samples to draw on this level (over all shards)
     :param chunk_size: samples per loop step
     :param is_level0: True -> coarse contributions are zero
     :param acc_dtype: accumulator dtype
+    :param start_index: first sample index (a continued level goes on
+        where it stopped)
+    :param shard, n_shards: this shard's place on the mesh
     :param device: where samples are drawn and reduced; None = the
-        generator's device
-    :return: MomentAccumulators
+        current CUDA device
+    :return: MomentAccumulators of this shard's chunks
     """
-    device = resolve_device(device, like=generator)
+    device = resolve_device(device)
+    seed, level = (int(v) for v in level_key)
     n_samples = int(n_samples)
+    start_index = int(start_index)
     comp = None
     acc = None
-    for start in range(0, n_samples, chunk_size):
-        m = min(chunk_size, n_samples - start)
+    n_total = 0
+    n_chunks = -(-n_samples // chunk_size)
+    for c in range(int(shard), n_chunks, int(n_shards)):
+        first = c * chunk_size
+        m = min(chunk_size, n_samples - first)
+        generator = chunk_generator(seed, level, start_index + first, device)
         fine, coarse, failed = sample_chunk_fn(generator, m, device)
         valid = ~failed & ~_any_nan(fine)
         if not is_level0:
@@ -97,10 +117,10 @@ def fused_level_moments(sample_chunk_fn, moments_fn, generator, n_samples,
             valid = valid & ~_any_nan(phi_c)
         chunk = _moment_chunk(torch.nan_to_num(phi_f), torch.nan_to_num(phi_c),
                               valid, acc_dtype)
+        n_total += m
         if acc is None:
             acc = list(chunk[:4]) + [chunk[4]]
             comp = [torch.zeros_like(a) for a in chunk[:4]]
-            n_total = m
             continue
         for k in range(4):
             # Kahan step: the cross-chunk error stays at one rounding of
@@ -110,10 +130,10 @@ def fused_level_moments(sample_chunk_fn, moments_fn, generator, n_samples,
             comp[k] = (t - acc[k]) - y
             acc[k] = t
         acc[4] = acc[4] + chunk[4]
-        n_total += m
     if acc is None:
         R = moments_fn.size
-        probe = sample_chunk_fn(generator, 0, device)[0]
+        probe = sample_chunk_fn(chunk_generator(seed, level, start_index, device),
+                                0, device)[0]
         shape = tuple(probe.shape[1:])
         zeros = dict(dtype=acc_dtype, device=device)
         return MomentAccumulators(
@@ -174,20 +194,27 @@ def accumulators_to_estimates(accs):
 
 def fused_mlmc_moments(sim_chunk_fns, moments_fn, seed, n_samples_per_level,
                        chunk_size=1 << 16, acc_dtype=torch.float64,
-                       device=None):
-    """All levels of the fused pipeline; level l draws from
-    ``level_generator(seed, l)``.
+                       device=None, mesh=None):
+    """All levels of the fused pipeline; level l's chunks draw from
+    ``chunk_generator(seed, l, first index)``.
 
     :param sim_chunk_fns: per-level ``f(generator, n, device) -> (fine,
         coarse, failed)``
-    :param device: None = the current CUDA device
+    :param device: None = the current CUDA device (ignored with a mesh)
+    :param mesh: a ``parallel.SampleMesh``: every shard draws its strided
+        chunks of each level on its device, and the accumulators are
+        summed over the mesh (JAX's ``axis_name`` with ``psum``)
     :return: list of MomentAccumulators, one per level
     """
-    device = resolve_device(device)
+    if mesh is None:
+        shards, n_shards = [(0, resolve_device(device))], 1
+    else:
+        shards, n_shards = mesh.local_shards(), mesh.n_devices
     accs = []
     for lvl, (fn, n) in enumerate(zip(sim_chunk_fns, n_samples_per_level)):
-        accs.append(fused_level_moments(
-            fn, moments_fn, level_generator(seed, lvl, device), int(n),
-            min(chunk_size, max(int(n), 1)), is_level0=(lvl == 0),
-            acc_dtype=acc_dtype, device=device))
+        per_shard = [fused_level_moments(
+            fn, moments_fn, (seed, lvl), int(n), min(chunk_size, max(int(n), 1)),
+            is_level0=(lvl == 0), acc_dtype=acc_dtype, shard=s,
+            n_shards=n_shards, device=d) for s, d in shards]
+        accs.append(per_shard[0] if mesh is None else mesh.reduce(per_shard))
     return accs

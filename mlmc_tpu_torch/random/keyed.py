@@ -15,8 +15,12 @@ module equals one of theirs under the same seed, and two attempts of one
 sample never share a counter.
 
 The numbers depend on (seed, level, index, attempt) alone: how a level is
-cut into batches does not change its samples.
+cut into batches does not change its samples. ``SampleKeys`` carries
+that identity for a chunk of samples: it is what the drivers hand their
+level functions in place of JAX's per-sample keys.
 """
+from typing import NamedTuple
+
 import torch
 
 from mlmc_tpu_torch.ops.cuda_kernels import (
@@ -106,3 +110,18 @@ def keyed_normals(seed, level_id, indices, attempts, n, dtype=torch.float32):
     return _per_sample(
         _word_blocks(seed, level_id, indices, attempts, -(-int(n) // 4)),
         _normal_pairs, indices, n, dtype)
+
+
+class SampleKeys(NamedTuple):
+    """The identity of a chunk of samples (first attempts): the
+    counterpart of JAX's keys ``fold_in(fold_in(key(seed), level), i)``.
+    The indices' device is where the chunk runs."""
+
+    seed: int
+    level: int
+    indices: torch.Tensor       # int64 [C]
+
+    def normals(self, n, dtype=torch.float32):
+        """``keyed_normals`` of the chunk's first attempts: [C, n]."""
+        return keyed_normals(self.seed, self.level, self.indices,
+                             torch.zeros_like(self.indices), n, dtype)

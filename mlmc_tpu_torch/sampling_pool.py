@@ -349,15 +349,22 @@ class DeviceBatchPool(SamplingPool):
         runs no workspace simulation; ``work_dir`` gets its ``output``
         directory all the same)
     :param seed: Philox key of every sample
-    :param sharding: a sample mesh over several devices; not supported yet,
-        anything but None raises
+    :param sharding: a ``parallel.SampleMesh``: a batch's indices are
+        split into equal shares over the shards (padded with repeats of
+        its last sample, which are dropped), each shard runs its share
+        of ``calculate_keyed_batch`` on its device, and the payloads are
+        gathered to the pool's device in index order. The samples are
+        those of ``sharding=None``; a sharded batch counts one dispatch
+        per local shard
     :param bulk: report a batch's successful samples as one ``BulkResults``
         of arrays; False reports (id, (fine, coarse)) tuples of host rows
     :param device_results: keep result payloads on the device (pair with
         ``DeviceMemory``); only the failure masks cross to the host
     :param inflight_bytes: this pool's budget of un-fetched host-bound
         payload (None: ``INFLIGHT_BYTES``)
-    :param device: where batches run; None = the current CUDA device
+    :param device: where batches run (with a mesh: where their payloads
+        are gathered); None = the current CUDA device (with a mesh: its
+        first device)
     """
 
     #: byte budget of un-fetched payloads of a host-bound wave: the wave
@@ -369,18 +376,15 @@ class DeviceBatchPool(SamplingPool):
                  sharding=None, bulk=True, max_batch=65536,
                  device_results=False, inflight_bytes=None, device=None):
         super().__init__(work_dir=work_dir, debug=debug)
-        if sharding is not None:
-            raise NotImplementedError(
-                "DeviceBatchPool(sharding=...) needs the multi-device "
-                "modules (parallel/), which mlmc_tpu_torch does not have "
-                "yet; pass sharding=None")
+        self._sharding = sharding
         self._bulk = bool(bulk)
         self._device_results = bool(device_results)
         self._max_batch = int(max_batch)
         self._inflight_bytes = int(inflight_bytes if inflight_bytes
                                    is not None else self.INFLIGHT_BYTES)
         self._seed = int(seed)
-        self._device = resolve_device(device)
+        self._device = (sharding.devices[0] if sharding is not None
+                        and device is None else resolve_device(device))
         self._pending = {}  # level_id -> list[(indices, attempts or None)]
         self._attempts = {}  # level_id -> {index: times scheduled}
         self._level_sims = {}
@@ -462,8 +466,11 @@ class DeviceBatchPool(SamplingPool):
             sub = idxs[start:start + self._max_batch]  # range stays a range
             att = None if attempts is None \
                 else attempts[start:start + self._max_batch]
-            slices.append((sub, att,
-                           force or _round_up_bucket(len(sub), self._min_bucket)))
+            bucket = force or _round_up_bucket(len(sub), self._min_bucket)
+            if self._sharding is not None:
+                # the cost class tiles over the mesh's shards
+                bucket = self._sharding.pad_to_shards(bucket)
+            slices.append((sub, att, bucket))
         return slices
 
     def execute_level(self, level_id):
@@ -488,8 +495,7 @@ class DeviceBatchPool(SamplingPool):
         :return: pending-record dict (completed in ``_collect``)
         """
         level_sim = self._level_sims[level_id]
-        calc = level_sim.calculate_keyed_batch
-        if calc is None:
+        if level_sim.calculate_keyed_batch is None:
             raise ValueError("the simulation has no keyed batch path "
                              "(calculate_keyed_batch); use OneProcessPool")
         n = len(idxs)
@@ -501,22 +507,22 @@ class DeviceBatchPool(SamplingPool):
         if timed:
             self._sync()
         t0 = time.perf_counter()
-        self.n_dispatches += 1
-        if is_range:
-            idx_t = torch.arange(idxs.start, idxs.stop, dtype=torch.int64,
-                                 device=self._device)
-            att_t = torch.zeros_like(idx_t)
-            idxs = np.arange(idxs.start, idxs.stop, dtype=np.int64)
+        if self._sharding is not None:
+            fine, coarse, failed = self._sharded_batch(level_sim, level_id,
+                                                       idxs, attempts)
         else:
-            idx_t = torch.from_numpy(idxs).to(self._device)
-            att_t = torch.from_numpy(attempts).to(self._device)
-        fine, coarse, failed = calc(level_sim.config_dict, self._seed,
-                                    level_id, idx_t, att_t)
-        if getattr(level_sim, "nan_result_is_failure", True):
-            # NaN results are failed samples (sims with NaN as a QoI value
-            # store them instead, masked at estimation time)
-            failed = (failed | torch.isnan(fine).any(dim=1)
-                      | torch.isnan(coarse).any(dim=1))
+            self.n_dispatches += 1
+            if is_range:
+                idx_t = torch.arange(idxs.start, idxs.stop, dtype=torch.int64,
+                                     device=self._device)
+                att_t = torch.zeros_like(idx_t)
+            else:
+                idx_t = torch.from_numpy(idxs).to(self._device)
+                att_t = torch.from_numpy(attempts).to(self._device)
+            fine, coarse, failed = self._keyed_batch(level_sim, level_id,
+                                                     idx_t, att_t)
+        if is_range:
+            idxs = np.arange(idxs.start, idxs.stop, dtype=np.int64)
         rec = dict(level_id=level_id, idxs=idxs, n=n, fine=fine,
                    coarse=coarse, failed=failed, first_call=first_call)
         if timed:
@@ -527,6 +533,44 @@ class DeviceBatchPool(SamplingPool):
             if not first_call:
                 self._timed.add(warm_key)
         return rec
+
+    def _keyed_batch(self, level_sim, level_id, idx_t, att_t):
+        """One keyed batch on the indices' device; NaN results are failed
+        samples (sims with NaN as a QoI value store them instead, masked
+        at estimation time)."""
+        fine, coarse, failed = level_sim.calculate_keyed_batch(
+            level_sim.config_dict, self._seed, level_id, idx_t, att_t)
+        if getattr(level_sim, "nan_result_is_failure", True):
+            failed = (failed | torch.isnan(fine).any(dim=1)
+                      | torch.isnan(coarse).any(dim=1))
+        return fine, coarse, failed
+
+    def _sharded_batch(self, level_sim, level_id, idxs, attempts):
+        """The batch split over the mesh: equal shares (the last sample
+        repeated to fill them), each shard's share on its device, no wait
+        between shards; the payloads gathered to the pool's device in
+        index order and trimmed to the batch.
+
+        :param idxs: range or int64 array; attempts: int64 array or None
+        """
+        mesh = self._sharding
+        n = len(idxs)
+        idx = (np.arange(idxs.start, idxs.stop, dtype=np.int64)
+               if isinstance(idxs, range) else np.asarray(idxs, np.int64))
+        att = (np.zeros(n, dtype=np.int64) if attempts is None
+               else np.asarray(attempts, np.int64))
+        padded = mesh.pad_to_shards(n)
+        idx = np.concatenate([idx, np.full(padded - n, idx[-1], np.int64)])
+        att = np.concatenate([att, np.zeros(padded - n, np.int64)])
+        parts = []
+        for shard, device in mesh.local_shards():
+            lo, hi = mesh.bounds(padded, shard)
+            parts.append(self._keyed_batch(
+                level_sim, level_id, torch.from_numpy(idx[lo:hi]).to(device),
+                torch.from_numpy(att[lo:hi]).to(device)))
+            self.n_dispatches += 1
+        return tuple(mesh.gather([p[k] for p in parts], device=self._device)[:n]
+                     for k in range(3))
 
     def _fetch(self, recs):
         """Bring the failure masks (and, for host-bound pools, the

@@ -229,8 +229,11 @@ def test_bootstrap_argument_errors():
     _, te = _estimates()
     with pytest.raises(ValueError, match="replace must be"):
         te.est_bootstrap_fast(n_subsamples=4, replace="x")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        te.est_bootstrap_fast(n_subsamples=4, replace="poisson", mesh=object())
+    mesh = mt.SampleMesh(["cpu", "cpu"], group=False)
+    with pytest.raises(ValueError, match="poisson"):
+        te.est_bootstrap_fast(n_subsamples=4, replace=True, mesh=mesh)
+    with pytest.raises(ValueError, match="divide"):
+        te.est_bootstrap_fast(n_subsamples=5, replace="poisson", mesh=mesh)
 
 
 def test_est_bootstrap_and_target_var_allocation():

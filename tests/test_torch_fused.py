@@ -67,7 +67,7 @@ def test_fused_level_moments_matches_jax(is_level0):
     want = jfe.fused_level_moments(jfn, jmfn, jax.random.key(0), n, n,
                                    is_level0=is_level0)
     got = tfe.fused_level_moments(_torch_chunk_fn(fine, coarse, failed),
-                                  moments_from_jax(jmfn), None, n, 512,
+                                  moments_from_jax(jmfn), (0, 0), n, 512,
                                   is_level0=is_level0, device="cpu")
     for field in tfe.MomentAccumulators._fields:
         np.testing.assert_allclose(getattr(got, field).numpy(),

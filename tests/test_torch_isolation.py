@@ -4,6 +4,7 @@ import os
 import re
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -12,6 +13,7 @@ import torch
 
 import mlmc_tpu_torch as mt
 from mlmc_tpu_torch.ops import cuda_kernels as ck
+from mlmc_tpu_torch.parallel import multihost
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -45,6 +47,19 @@ assert e.estimate_moments_fast()[0][0] == 1.0
 assert e.estimate_moments_extended()[0][0] == 1.0
 e.est_bootstrap_fast(n_subsamples=4, sample_vector=[200, 50], replace="poisson")
 assert e.var_bs_mean[0] == 0.0
+from mlmc_tpu_torch.parallel import SampleMesh, multihost, sharded_synth_pipeline
+mesh = SampleMesh(["cpu", "cpu"], group=False)
+e.est_bootstrap_fast(n_subsamples=4, sample_vector=[200, 50], replace="poisson",
+                     mesh=mesh)
+assert e.var_bs_mean[0] == 0.0
+sharded = sharded_synth_pipeline(mesh, 6, [2000, 500], [0.5, 0.25], domain=(-4, 4))(1)
+assert [int(r.n_valid) for r in sharded] == [int(a.n_valid) for a in accs]
+multihost.initialize(num_processes=1)
+assert multihost.is_coordinator()
+fn, exact = mt.unbiased.synth_unbiased_level_fn()
+u = mt.UnbiasedMLMC(fn, mt.GeometricLevels(0.4), chunk_size=64, mesh=mesh)
+u.sample(64)
+assert np.isfinite(u.estimates()["mean"])
 import torch
 gen = torch.Generator().manual_seed(0)
 shoot = mt.ShootingSimulation1D(dict(
@@ -219,7 +234,23 @@ def _default_device_calls():
             [], mt.Legendre(3, (-1, 1)), 0, []),
         "simple_distribution": lambda: mt.SimpleDistribution(
             mt.Legendre(3, (-1, 1)), np.ones((3, 2))),
+        "sample_mesh": lambda: mt.SampleMesh(),
+        "global_sample_mesh": lambda: multihost.global_sample_mesh(),
+        "sampling_pool_pbs": lambda: mt.SamplingPoolPBS(),
+        "fused_mlmc_mesh_of_the_card": lambda: mt.FusedMLMC(
+            [], mt.Legendre(3, (-1, 1)), mesh=mt.SampleMesh()),
+        "multilevel_cdf": lambda: mt.MultilevelCDF(
+            _pair, 2, [0.0, 1.0], 0.1),
+        "cmlmc": lambda: mt.cmlmc(_pair, [0.5, 0.25], eps=1e-2),
+        "ml2r": lambda: mt.ml2r(_pair, [0.5, 0.25], target_var=1e-4),
+        "unbiased_mlmc": lambda: mt.UnbiasedMLMC(
+            lambda level, keys: keys.indices * 0.0, mt.GeometricLevels(0.5)),
     }
+
+
+def _pair(level, keys):
+    x = keys.normals(1)[:, 0].double()
+    return x, x, torch.ones_like(x, dtype=torch.bool)
 
 
 @pytest.mark.parametrize("name", sorted(_default_device_calls()))
@@ -228,8 +259,10 @@ def test_entry_points_default_to_the_card(name):
     device; without a card it raises instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU: the call runs on it instead")
-    with pytest.raises(RuntimeError, match="is_available"):
-        _default_device_calls()[name]()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)   # the PBS shim's
+        with pytest.raises(RuntimeError, match="is_available"):
+            _default_device_calls()[name]()
 
 
 @pytest.mark.cuda

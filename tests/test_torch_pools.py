@@ -45,8 +45,9 @@ def test_device_batch_pool_arguments(tmp_path):
     assert os.path.isdir(os.path.join(pool._output_dir, "failed"))
     assert pool._inflight_bytes == mt.DeviceBatchPool.INFLIGHT_BYTES == 1 << 30
     assert mt.DeviceBatchPool(inflight_bytes=123, device="cpu")._inflight_bytes == 123
-    with pytest.raises(NotImplementedError, match="sharding"):
-        mt.DeviceBatchPool(sharding=object(), device="cpu")
+    mesh = mt.SampleMesh(["cpu", "cpu"], group=False)
+    sharded = mt.DeviceBatchPool(sharding=mesh)     # gathers to the mesh's device
+    assert sharded._sharding is mesh and sharded._device == torch.device("cpu")
     host = mt.OneProcessPool(str(tmp_path), True, device="cpu")
     assert host._debug is True and host._device == "cpu"
 
