@@ -83,11 +83,29 @@ Run from the root of a checkout:  python3 chip_smoke.py
       estimates within 1e-12 relative;
    fails unless kernel A ran 2 + 1 times and kernel C 2 times; one JSON
    line with each part's host time and the warm kernel times;
-8. holds each kernel's outputs at its path's shapes against its plain
+8. the darcy3d path, with the counters reset just before it (the set-ups
+   of bench_extra.py and examples/darcy3d_workflow.py, nothing cut):
+   a. the 3-D Darcy batch (256 samples, 32^3 + 16^3, spectral CG), the 3-D
+      fractured batch (64, 24 discs, contrast 1e3, MG-CG) and the 2-D
+      fractured batch (1024, 64^2 + 16^2, circulant, 24 fractures, MG-CG):
+      samples/s, CG iterations, device events and idle share, peak memory;
+      the homogeneous 3-D flux equals k0, batch rows equal per-sample
+      solves, the coupling and the fluxes hold;
+   b. the adaptive 3-D run (8^3 / 16^3 / 32^3 from [512, 128, 32] to
+      target_var=2e-5, kernel C each round, kernel D, the maxent density):
+      within 1.1x of the target, E[K_eff] within 0.12 of exp(1/6);
+   c. ProcessBase over DiffusionSimulation3D on the card: run --clean,
+      process, renew (SampleStorageBin where h5py is absent); process's
+      moments equal an Estimate over the reopened storage;
+   d. FlowSim with mock gmsh and flow123d scripts, 4 + 2 samples through
+      OneProcessPool; the native gmsh parser must parse the meshes;
+   fails unless kernels C and D were launched; holds them against their
+   plain versions at the 3-D run's streams; one JSON line;
+9. holds each kernel's outputs at its path's shapes against its plain
    version (kernel C at the e2e, config-4 and structured streams; kernel D
    at the e2e and structured streams, also against an exact f64 summation,
    and two launches of it bit for bit against each other);
-9. times each kernel and its plain version at those shapes and computes
+10. times each kernel and its plain version at those shapes and computes
    each kernel's bound from this run's inputs; kernels C and D also at
    their largest launch, the structured tier's 12 x 5 streams.
 
@@ -95,8 +113,8 @@ Exits non-zero, printing no result, without a CUDA device or outside a
 checkout. The last line is {"ok": true, "device": {...}}; the line before
 it lists the kernels with their launch counts (of all the paths, and by
 path under "launches_by_path"), errors, times and bounds; each
-configuration of the simulations path, and the persisted path, prints one
-JSON line of its own.
+configuration of the simulations path, and the persisted, sharded and
+darcy3d paths, print one JSON line of their own.
 """
 import json
 import os
@@ -133,8 +151,10 @@ DARCY_TARGET_SLACK = 1.1   # the finished run's variance may sit this far above
 SHARDED_DARCY_N = [1024, 1024]
 SHARDED_SYNTH_N = [1 << 17, 1 << 15]
 C2_N = [1 << 17, 1 << 15]
-SHARDED_CMLMC_EPS = 2e-3
-SHARDED_ML2R_TARGET = 1e-7
+# cmlmc's and ml2r's depth: their work grows as 1/eps^2 and 1/target (45 s
+# of the script at 2e-3 and 1e-7; cut to keep the script near 250 s)
+SHARDED_CMLMC_EPS = 4e-3
+SHARDED_ML2R_TARGET = 4e-7
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the FP64 rate of
 # the tensor cores (the fastest f64 unit); the int32 rate is 64 lanes per
@@ -1749,6 +1769,446 @@ def sharded_path(torch, dev):
     return counts, {"synth_mlmc": err_a, "samples_mlmc": err_c}
 
 
+# ------------------------------------------------------------------------ #
+# the 3-D and fractured Darcy path (kernels C and D), ProcessBase, FlowSim
+# ------------------------------------------------------------------------ #
+D3_LEVELS = [[1 / 8], [1 / 16], [1 / 32]]
+D3_N0 = [512, 128, 32]
+D3_TARGET_VAR = 2e-5
+D3_MAX_ROUNDS = 8
+
+_MOCK_GMSH = r"""#!/usr/bin/env python3
+# Mock gmsh: writes a canned msh2 square; finer clscale => more triangles.
+import sys
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+cl = float(args[args.index("-clscale") + 1])
+head = ("$MeshFormat\n2.2 0 8\n$EndMeshFormat\n$PhysicalNames\n2\n"
+        "2 1 \"ground\"\n1 2 \".bc_outflow\"\n$EndPhysicalNames\n")
+if cl <= 0.3:  # fine: 4 triangles around the center node
+    body = ("$Nodes\n5\n1 0 0 0\n2 1 0 0\n3 1 1 0\n4 0 1 0\n5 0.5 0.5 0\n$EndNodes\n"
+            "$Elements\n5\n1 2 2 1 1 1 2 5\n2 2 2 1 1 2 3 5\n3 2 2 1 1 3 4 5\n"
+            "4 2 2 1 1 4 1 5\n5 1 2 2 2 2 3\n$EndElements\n")
+else:  # coarse: 2 triangles
+    body = ("$Nodes\n4\n1 0 0 0\n2 1 0 0\n3 1 1 0\n4 0 1 0\n$EndNodes\n"
+            "$Elements\n3\n1 2 2 1 1 1 2 3\n2 2 2 1 1 1 3 4\n3 1 2 2 2 2 3\n$EndElements\n")
+open(out, "w").write(head + body)
+"""
+
+_MOCK_FLOW123D = r"""#!/usr/bin/env python3
+# Mock flow123d: flux := -mean(conductivity) of the fields file; fails if
+# the rendered YAML still contains placeholders.
+import os, sys
+args = sys.argv[1:]
+indir = args[args.index("-i") + 1]
+outdir = args[args.index("-o") + 1]
+text = open(args[args.index("-s") + 1]).read()
+assert "<mesh_file>" not in text and "<conductivity>" not in text, text
+lines = iter(open(os.path.join(indir, "fields_sample.msh")).read().split("\n"))
+for line in lines:
+    if line.strip() == "$ElementData":
+        break
+strings = [next(lines) for _ in range(int(next(lines)))]
+reals = [next(lines) for _ in range(int(next(lines)))]
+ints = [int(next(lines)) for _ in range(int(next(lines)))]
+values = [float(next(lines).split()[1]) for _ in range(ints[2])]
+with open(os.path.join(outdir, "water_balance.yaml"), "w") as f:
+    f.write("data:\n- {time: 0, region: .bc_outflow, data: [%r, 0.0]}\n"
+            % (-sum(values) / len(values)))
+"""
+
+
+def _batch_figures(torch, dev, label, cls, cfg, B):
+    """Time a batch of B (CUDA events), its CG iterations, device events and
+    idle share (torch.profiler) and peak memory; returns (figures, fine,
+    coarse, draws) of one more batch, drawn from the keyed stream."""
+    from mlmc_tpu_torch.tool.profile_simulations import device_breakdown
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with Phase(torch, "%s: first call and 3 timed" % label):
+        ms = _time_ms(torch, lambda: cls.calculate_batch(cfg, gen, B), reps=3)
+    with Phase(torch, "%s: one call under torch.profiler" % label):
+        prof = device_breakdown(label, lambda: cls.calculate_batch(cfg, gen, B), 1, top=4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    # the checked batch: samples (SEED, level 1, index 0 .. B-1), the same
+    # in every run whatever the timing calls drew
+    idx = torch.arange(B, device=dev)
+    draws = cls._keyed_draws(cfg, SEED, 1, idx, torch.zeros_like(idx))
+    fine, coarse, it_f, it_c = cls._calculate(cfg, **draws)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated(dev) - before) / 1e9
+    figures = dict(batch=B, batch_ms=ms, samples_per_s=B / ms * 1e3,
+                   cg_iterations_fine_max=int(it_f.max()),
+                   cg_iterations_fine_mean=float(it_f.double().mean()),
+                   cg_iterations_coarse_max=int(it_c.max()),
+                   cg_iterations_coarse_mean=float(it_c.double().mean()),
+                   device_events_per_batch=prof["events_per_call"],
+                   device_idle_share=prof["idle_share"], peak_memory_gb=peak)
+    print("%s: %d coupled samples in %.3f ms (CUDA events, median of 3): %.4g "
+          "samples/s; CG iterations max %d mean %.2f (fine), max %d mean %.2f (coarse); "
+          "%.0f device events per batch, device idle %.1f%%; peak device memory %.3f GB"
+          % (label, B, ms, figures["samples_per_s"], figures["cg_iterations_fine_max"],
+             figures["cg_iterations_fine_mean"], figures["cg_iterations_coarse_max"],
+             figures["cg_iterations_coarse_mean"], figures["device_events_per_batch"],
+             100 * figures["device_idle_share"], peak))
+    return figures, fine[:, 0].double(), coarse[:, 0].double(), draws
+
+
+def _darcy3d_batches(torch, dev, mt):
+    """bench_extra.py's 3-D Darcy, 3-D fractured and 2-D fractured batches."""
+    from mlmc_tpu_torch.random import frac_geom
+
+    out = {}
+    Sim = mt.DiffusionSimulation3D
+    cfg = Sim(dict(sigma=1.0, corr_length=0.3)).level_instance([1 / 32], [1 / 16]).config_dict
+    fig, fine, coarse, draws = _batch_figures(
+        torch, dev, "3-D Darcy batch (32^3 + 16^3, spectral CG)", Sim, cfg, 256)
+    _require(bool(torch.isfinite(fine).all() and torch.isfinite(coarse).all()),
+             "3-D Darcy batch: non-finite fluxes")
+    # the homogeneous limit: K = k0 gives flux k0
+    K = torch.full((4, 32, 32, 32), 2.5, device=dev)
+    p, _ = Sim._solve_pressure(cfg, K)
+    hom = float(Sim._flux(K, p).double().sub(2.5).abs().max())
+    _require(hom < 2.5e-4, "3-D homogeneous limit: |flux - k0| = %.3g" % hom)
+    # batch rows against the same samples solved alone
+    row_dev = 0.0
+    for b in (0, 17, 255):
+        one = Sim._calculate(cfg, phases=draws["phases"][b:b + 1])
+        for got, want in ((one[0][0, 0], fine[b]), (one[1][0, 0], coarse[b])):
+            row_dev = max(row_dev, abs(float(got) - float(want)) / abs(float(want)))
+    _require(row_dev <= 1e-5, "3-D batch rows vs per-sample solves: %.3g > 1e-5" % row_dev)
+    var_f, var_d = float(fine.var()), float((fine - coarse).var())
+    _require(var_d < 2e-3 * var_f, "3-D coupling: Var(fine - coarse) %.3g >= 2e-3 x "
+             "Var(fine) %.3g" % (var_d, var_f))
+    fig.update(homogeneous_abs_err=hom, rows_vs_alone_max_rel=row_dev,
+               var_fine=var_f, var_fine_minus_coarse=var_d, mean_flux=float(fine.mean()))
+    print("3-D Darcy checks: homogeneous |flux - k0| %.3g (tol 2.5e-4); rows 0, 17, 255 "
+          "against per-sample solves: max relative %.3g (tol 1e-5); Var(fine - coarse) / "
+          "Var(fine) = %.3g (tol 2e-3); mean flux %.4f"
+          % (hom, row_dev, var_d / var_f, fig["mean_flux"]))
+    out["darcy3d_batch"] = fig
+
+    F3 = frac_geom.FracturedDiffusionSimulation3D
+    cfg = F3(dict(sigma=1.0, corr_length=0.3, n_fractures=24, frac_contrast=1e3)
+             ).level_instance([1 / 32], [1 / 16]).config_dict
+    fig, fine, coarse, _ = _batch_figures(
+        torch, dev, "3-D fractured batch (32^3 + 16^3, 24 discs, contrast 1e3, MG-CG)",
+        F3, cfg, 64)
+    var_f, var_c = float(fine.var()), float(coarse.var())
+    var_d = float((fine - coarse).var())
+    _require(bool(torch.isfinite(fine).all() and (fine > 0.5).all()),
+             "3-D fractured fluxes: min %.4g (must be finite and > 0.5)" % float(fine.min()))
+    # the coupling: one network on both grids makes fine and coarse
+    # positively correlated, Var(fine - coarse) < Var(fine) + Var(coarse)
+    # (independent draws give equality). Var(fine - coarse) < Var(fine)
+    # does not hold here: a coarse fracture is a coarse cell thick and
+    # conducts twice a fine one (profile_simulations measures the ratio)
+    _require(bool(torch.isfinite(coarse).all()) and var_d < var_f + var_c,
+             "3-D fractured coupling: Var(fine - coarse) %.3g >= Var(fine) + Var(coarse) "
+             "%.3g" % (var_d, var_f + var_c))
+    fig.update(var_fine=var_f, var_coarse=var_c, var_fine_minus_coarse=var_d,
+               min_flux=float(fine.min()), mean_flux=float(fine.mean()),
+               mean_flux_coarse=float(coarse.mean()))
+    print("3-D fractured checks: fluxes finite, min %.4f (> 0.5); Var(fine - coarse) %.4g < "
+          "Var(fine) + Var(coarse) %.4g; Var(fine - coarse) / Var(fine) = %.3g; mean flux "
+          "%.4f fine, %.4f coarse" % (fig["min_flux"], var_d, var_f + var_c, var_d / var_f,
+                                      fig["mean_flux"], fig["mean_flux_coarse"]))
+    out["fractured3d_batch"] = fig
+
+    F2 = frac_geom.FracturedDiffusionSimulation
+    cfg = F2(dict(sigma=1.0, corr_length=0.3, field_method="circulant", n_fractures=24,
+                  frac_contrast=1e3)).level_instance([1 / 64], [1 / 16]).config_dict
+    fig, fine, coarse, _ = _batch_figures(
+        torch, dev, "2-D fractured batch (64^2 + 16^2, circulant, 24 fractures, MG-CG)",
+        F2, cfg, 1024)
+    var_f, var_d = float(fine.var()), float((fine - coarse).var())
+    _require(bool(torch.isfinite(fine).all() and (fine > 0).all()
+                  and torch.isfinite(coarse).all()), "2-D fractured fluxes not finite > 0")
+    _require(var_d < var_f, "2-D fractured coupling: Var(fine - coarse) %.3g >= Var(fine) "
+             "%.3g" % (var_d, var_f))
+    fig.update(var_fine=var_f, var_fine_minus_coarse=var_d, mean_flux=float(fine.mean()))
+    print("2-D fractured checks: fluxes finite and > 0; Var(fine - coarse) %.4g < Var(fine) "
+          "%.4g" % (var_d, var_f))
+    out["fractured2d_batch"] = fig
+    return out
+
+
+def _darcy3d_adaptive(torch, dev, mt):
+    """examples/darcy3d_workflow.py's adaptive study: 8^3 / 16^3 / 32^3 to
+    target_var=2e-5, kernel C each round, then the maxent density."""
+    import mlmc_tpu_torch.quantity.quantity_estimate as qe
+
+    sim = mt.DiffusionSimulation3D(dict(sigma=1.0, corr_length=0.3))
+    t_start = time.perf_counter()
+    storage = mt.DeviceMemory(device=dev)
+    pool = mt.DeviceBatchPool(seed=11, device_results=True, max_batch=1 << 13, device=dev)
+    sampler = mt.Sampler(storage, pool, sim, D3_LEVELS)
+    sampler.set_initial_n_samples(D3_N0)
+    sampler.schedule_samples()
+    sampler.ask_sampling_pool_for_samples()
+    q = mt.make_root_quantity(storage, sim.result_format())["flux"][0]["outflow"][0]
+    mfn = mt.Legendre(10, (0.05, 6.0))
+    est = mt.Estimate(q, storage, mfn)
+    rounds, reached = 0, False
+    while rounds < D3_MAX_ROUNDS:
+        raw, _ns = est.estimate_diff_vars_fast()               # one kernel C launch
+        variances, n_ops = est.estimate_diff_vars_regression(
+            sampler._n_scheduled_samples, raw_vars=raw)
+        n_est = mt.estimate_n_samples_for_target_variance(
+            D3_TARGET_VAR, variances, n_ops, n_levels=sampler.n_levels)
+        if sampler.process_adding_samples(n_est, 0, 0.3):
+            reached = True
+            break
+        rounds += 1
+    _require(reached, "3-D adaptive run: the allocation for %.0e was not reached in %d "
+             "rounds" % (D3_TARGET_VAR, D3_MAX_ROUNDS))
+    m = qe.estimate_mean(q)
+    rates = mt.estimate_convergence_rates(m.l_means, m.l_vars, storage.get_level_parameters(),
+                                          storage.get_n_ops())
+    k_eff = float(np.ravel(m.mean)[0])
+    distr, _info, result, _mobj = est.construct_density_fast()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    sampler.ask_sampling_pool_for_samples()
+    raw, ns = est.estimate_diff_vars_fast()
+    var = float(np.max((raw[:, 1:] / ns[:, None]).sum(axis=0)))
+    ext_mean, _ = est.estimate_moments_extended()               # kernel D
+    fast_mean, _ = est.estimate_moments_fast()
+    generic = qe.estimate_mean(qe.moments(q, mfn))
+    n_generic = [int(v) for v in np.ravel(generic.n_samples)]
+    _require(var <= DARCY_TARGET_SLACK * D3_TARGET_VAR,
+             "3-D adaptive run: max var %.4g after the allocation for %.0e (slack %.2f)"
+             % (var, D3_TARGET_VAR, DARCY_TARGET_SLACK))
+    _require(np.exp(-0.5) < k_eff < np.exp(0.5) and abs(k_eff - np.exp(1 / 6)) < 0.12,
+             "3-D E[K_eff] %.5f: outside the Wiener bounds or 0.12 from exp(1/6)" % k_eff)
+    _require(ext_mean[0] == 1.0 and fast_mean[0] == 1.0, "3-D run: mean[0] != 1")
+    _require([int(v) for v in ns] == n_generic, "3-D run: fast-tier valid counts %s vs "
+             "the generic tier's %s" % (list(ns), n_generic))
+    _require(bool(result.success), "3-D run: the maxent solve did not converge")
+    out = dict(wall_s=wall, rounds=rounds, n_per_level=[int(v) for v in storage.get_n_collected()],
+               target_var=D3_TARGET_VAR, max_var=var, k_eff=k_eff, matheron=float(np.exp(1 / 6)),
+               alpha=rates["alpha"], beta=rates["beta"], gamma=rates.get("gamma"),
+               maxent_converged=bool(result.success), dispatches=int(pool.n_dispatches))
+    print("3-D adaptive run: the allocation for target var %.0e reached after %d rounds in "
+          "%.2f s (host clock, with the density); n per level %s; max var over the moments "
+          "%.4g (slack 1.1); E[K_eff] %.5f (Matheron exp(1/6) = %.5f, tol 0.12); alpha %.3f, "
+          "beta %.3f; fast-tier valid counts equal the generic tier's; maxent converged"
+          % (D3_TARGET_VAR, rounds, wall, out["n_per_level"], var, k_eff, np.exp(1 / 6),
+             rates["alpha"], rates["beta"]))
+    return out, est
+
+
+def _darcy3d_process_base(torch, dev, mt):
+    """ProcessBase over DiffusionSimulation3D on the card: run --clean,
+    process, renew; SampleStorageBin in the work dir where h5py is absent."""
+    import shutil
+    import tempfile
+
+    import mlmc_tpu_torch.quantity.quantity_estimate as qe
+    from mlmc_tpu_torch.tool.process_base import ProcessBase
+
+    try:
+        import h5py  # noqa: F401
+        hdf5 = True
+    except ImportError:
+        hdf5 = False
+
+    class Darcy3DProcess(ProcessBase):
+        def __init__(self, argv):
+            self.step_range = (1 / 8, 1 / 32)
+            self.n_levels = 3
+            self.n_moments = 10
+            self.device = dev
+            self.storage = None
+            super().__init__(argv)
+            if self.storage is not None and hasattr(self.storage, "close"):
+                self.storage.close()
+
+        def create_simulation(self):
+            return mt.DiffusionSimulation3D(dict(sigma=1.0, corr_length=0.3))
+
+        def initial_n_samples(self):
+            return [256, 64, 16]
+
+        def target_var(self):
+            return 1e-3
+
+        def setup_config(self, n_levels, clean):
+            if hdf5:
+                sampler, sim = super().setup_config(n_levels, clean)
+            else:
+                log_dir = os.path.join(self.work_dir, "mlmc_%d.log" % n_levels)
+                if clean:
+                    shutil.rmtree(log_dir, ignore_errors=True)
+                sim = self.create_simulation()
+                sampler = mt.Sampler(
+                    sample_storage=mt.SampleStorageBin(log_dir),
+                    sampling_pool=mt.DeviceBatchPool(device=self.device),
+                    sim_factory=sim, level_parameters=mt.determine_level_parameters(
+                        n_levels, self.step_range))
+            self.storage = sampler.sample_storage
+            return sampler, sim
+
+        def process(self):
+            self.result = super().process()
+            return self.result
+
+    work = tempfile.mkdtemp(prefix="mlmc_process_base_")
+    try:
+        t0 = time.perf_counter()
+        Darcy3DProcess(["run", work, "--clean"])
+        t_run = time.perf_counter() - t0
+        proc = Darcy3DProcess(["process", work])
+        means, variances = proc.result
+        t1 = time.perf_counter()
+        Darcy3DProcess(["renew", work])
+        t_renew = time.perf_counter() - t1
+        # an Estimate built over the reopened storage gives process's moments
+        again = Darcy3DProcess.__new__(Darcy3DProcess)
+        again.__dict__.update(step_range=(1 / 8, 1 / 32), n_levels=3, n_moments=10,
+                              device=dev, work_dir=work, debug=False, clean=False)
+        sampler, sim = again.setup_config(3, False)
+        storage = sampler.sample_storage
+        q = again.scalar_quantity(again.get_quantity(storage, sim))
+        mfn = again.create_moments_fn(q, storage)
+        est = mt.Estimate(q, storage, mfn)
+        e_means, e_vars = est.estimate_moments(mfn)
+        n_coll = [int(v) for v in storage.get_n_collected()]
+        _require(np.array_equal(np.asarray(e_means), np.asarray(means))
+                 and np.array_equal(np.asarray(e_vars), np.asarray(variances)),
+                 "ProcessBase.process's moments differ from an Estimate over the reopened "
+                 "storage")
+        _require(np.asarray(means)[0] == 1.0, "ProcessBase means[0] != 1")
+        rates, extrap = again.analyze_convergence_rates(est)
+        _require(all(np.isfinite(rates[k]) for k in ("alpha", "beta")) and np.isfinite(extrap),
+                 "ProcessBase convergence rates not finite: %s" % rates)
+        try:
+            import matplotlib  # noqa: F401
+            plots = True
+        except ImportError:
+            plots = False
+        if plots:
+            again.analyze_regression_of_variance(est, sampler, out_file=os.path.join(work, "r"))
+            again.analyze_error_of_level_variances(est, sampler,
+                                                   out_file=os.path.join(work, "l"))
+            again.analyze_pdf_approx(est, out_file=os.path.join(work, "pdf"), tol=1e-6)
+            _require(all(os.path.exists(os.path.join(work, f + ".pdf"))
+                         for f in ("r", "l", "pdf")), "ProcessBase plots not written")
+        if hasattr(storage, "close"):
+            storage.close()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = dict(storage="hdf5" if hdf5 else "binary log", run_s=t_run, renew_s=t_renew,
+               n_per_level=n_coll, alpha=rates["alpha"], beta=rates["beta"],
+               matplotlib=plots)
+    print("ProcessBase over DiffusionSimulation3D (%s storage): run --clean %.2f s, "
+          "process, renew %.2f s; n per level %s; process's moments equal an Estimate over "
+          "the reopened storage; alpha %.3f, beta %.3f; matplotlib %s, plot recipes %s"
+          % (out["storage"], t_run, t_renew, n_coll, rates["alpha"], rates["beta"],
+             "imports" if plots else "absent", "ran" if plots else "not run"))
+    return out
+
+
+def _flow_sim_mock(torch, dev, mt):
+    """FlowSim with mock gmsh and flow123d: 2 levels, 4 + 2 samples through
+    OneProcessPool on the card; the native gmsh parser must parse."""
+    import shutil
+    import tempfile
+
+    from mlmc_tpu_torch import native
+
+    _require(native.gmsh_available(), "the native gmsh parser did not build:\n%s"
+             % native.gmsh_build_error())
+    tmp = tempfile.mkdtemp(prefix="mlmc_flow_sim_")
+    cwd = os.getcwd()            # a workspace sample changes directory
+    try:
+        paths = {}
+        for name, text in (("gmsh", _MOCK_GMSH), ("flow123d", _MOCK_FLOW123D)):
+            paths[name] = os.path.join(tmp, "mock_" + name)
+            with open(paths[name], "w") as f:
+                f.write(text)
+            os.chmod(paths[name], 0o755)
+        with open(os.path.join(tmp, "square.geo"), "w") as f:
+            f.write("// geometry consumed by the mock\n")
+        with open(os.path.join(tmp, "flow_input.yaml.tmpl"), "w") as f:
+            f.write("mesh: <mesh_file>\ndt: <timestep_h1>\ncond: <conductivity>\n")
+        before = dict(mt.FlowSim.parsers)
+        sim = mt.FlowSim(dict(
+            env={"gmsh": paths["gmsh"], "flow123d": paths["flow123d"], "gmsh_version": 2},
+            fields_params=dict(model="fourier", corr_length=0.5, dim=2, log=True, sigma=1,
+                               mode_no=64),
+            yaml_file=os.path.join(tmp, "flow_input.yaml.tmpl"),
+            geo_file=os.path.join(tmp, "square.geo"), work_dir=os.path.join(tmp, "work")),
+            clean=True)
+        storage = mt.Memory()
+        t0 = time.perf_counter()
+        sampler = mt.Sampler(storage, mt.OneProcessPool(work_dir=os.path.join(tmp, "out"),
+                                                        device=dev),
+                             sim, [[0.6], [0.2]])
+        sampler.set_initial_n_samples([4, 2])
+        sampler.schedule_samples()
+        sampler.ask_sampling_pool_for_samples(sleep=0.01)
+        seconds = time.perf_counter() - t0
+        n_coll = [int(v) for v in storage.get_n_collected()]
+        failed = sum(len(v) for v in storage.failed_samples().values())
+        pairs = [np.asarray(p) for p in storage.sample_pairs()]
+        cfg = sampler._level_sim_objects[1].config_dict
+        r1 = mt.FlowSim.calculate(cfg, 123, device=dev)
+        r2 = mt.FlowSim.calculate(cfg, 123, device=dev)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    parsed = {k: mt.FlowSim.parsers[k] - before[k] for k in before}
+    _require(n_coll == [4, 2] and failed == 0, "FlowSim run: collected %s, %d failed"
+             % (n_coll, failed))
+    _require(all(np.all(p[..., 0] > 0) for p in pairs), "FlowSim fluxes not positive")
+    _require(np.array_equal(r1[0], r2[0]) and np.array_equal(r1[1], r2[1]),
+             "FlowSim: a renewed sample does not replay")
+    _require(parsed["native"] > 0 and parsed["python"] == 0,
+             "FlowSim meshes parsed by %s: the native parser must parse them" % parsed)
+    print("FlowSim with mock gmsh/flow123d: 4 + 2 samples through OneProcessPool (fields "
+          "on the card) in %.2f s, none failed; meshes parsed by the native parser %d "
+          "times, by the Python reader %d times; a renewed sample replays bit for bit"
+          % (seconds, parsed["native"], parsed["python"]))
+    return dict(seconds=seconds, n_per_level=n_coll, parsed_by=parsed)
+
+
+def darcy3d_path(torch, dev):
+    """The 3-D and fractured Darcy batches, the adaptive 3-D run (kernels C
+    and D), ProcessBase on the card and FlowSim with mock binaries; returns
+    the path's launch counts and the kernels' errors at its streams."""
+    import mlmc_tpu_torch as mt
+    from mlmc_tpu_torch.ops import cuda_extended as cx
+    from mlmc_tpu_torch.ops import cuda_kernels as ck
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ck.reset_launch_counts()
+    cx.reset_launch_counts()
+    out = {"path": "darcy3d"}
+    with Phase(torch, "darcy3d path") as whole:
+        with Phase(torch, "darcy3d: 3-D, 3-D fractured and 2-D fractured batches"):
+            out.update(_darcy3d_batches(torch, dev, mt))
+        with Phase(torch, "darcy3d: the adaptive 3-D run"):
+            out["adaptive"], est = _darcy3d_adaptive(torch, dev, mt)
+        counts = {**ck.launch_counts(), **cx.launch_counts()}
+        with Phase(torch, "darcy3d: ProcessBase on the card"):
+            out["process_base"] = _darcy3d_process_base(torch, dev, mt)
+        with Phase(torch, "darcy3d: FlowSim with mock binaries"):
+            out["flow_sim"] = _flow_sim_mock(torch, dev, mt)
+    out.update(seconds=whole.seconds, launches=counts,
+               peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    print("darcy3d path: %.2f s; kernel launches %s; peak device memory %.3f GB"
+          % (whole.seconds, counts, out["peak_memory_gb"]))
+    for name in ("samples_mlmc", "samples_ext"):
+        _require(counts[name] > 0, "kernel %s was not launched by the darcy3d path" % name)
+    with Phase(torch, "kernels C/D vs plain at the 3-D run's streams"):
+        errs = _streams_vs_plain(torch, dev, est, "the 3-D Darcy streams")
+    print(json.dumps(out))
+    return counts, {"samples_mlmc": errs[0], "samples_ext": errs[1]}
+
+
 def _cdf_run(mt, pair, mesh, dev):
     m = mt.MultilevelCDF(pair, 3, np.linspace(-3.0, 3.0, 41), 0.1, seed=13,
                          chunk_size=1 << 10, mesh=mesh, device=dev)
@@ -1774,7 +2234,8 @@ def main():
     package = os.path.join(HERE, "mlmc_tpu_torch")
     if not all(os.path.isfile(os.path.join(package, f))
                for f in ("csrc/synth_mlmc.cu", "csrc/samples_mlmc.cu",
-                         "csrc/moment_gram.cuh", "native/sample_log.cpp")):
+                         "csrc/moment_gram.cuh", "native/sample_log.cpp",
+                         "native/gmsh_fast.cpp")):
         _fail("run from the root of a checkout: the sources under mlmc_tpu_torch/ "
               "are missing")
     sys.path.insert(0, HERE)
@@ -1794,7 +2255,8 @@ def main():
            "stored": stored_path(torch, dev)}
     later = {"simulations": simulations_path(torch, dev),
              "persisted": persisted_path(torch, dev),
-             "sharded": sharded_path(torch, dev)}
+             "sharded": sharded_path(torch, dev),
+             "darcy3d": darcy3d_path(torch, dev)}
     kernels = []
     for path, of_path in own.items():
         for k in of_path:  # launches of every path; errors at every path's streams

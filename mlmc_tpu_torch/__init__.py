@@ -8,7 +8,12 @@ outlive the process go through the file-backed storages
 (``SampleStorageHDF``, ``SampleStorageBin``); host simulations run in the
 ``OneProcessPool`` / ``ProcessPool`` / ``ThreadPool`` with per-sample
 workspaces. The sample mesh (``parallel``) spreads samples over several
-devices and processes.
+devices and processes. The 3-D and fractured Darcy simulations
+(``DiffusionSimulation3D``, ``random/frac_geom``), the external-binary
+simulations (``FlowSim``, ``sim/external``) and the reference library's
+tools (``tool/process_base``, ``tool/validation``, ``tool/gmsh_io``, the
+legacy maxent ``tool/distribution``, ``plot/``) sit under their module
+paths.
 
 Module paths and public names mirror ``mlmc_tpu``: the counterpart of
 ``mlmc_tpu/X.py`` is ``mlmc_tpu_torch/X.py``. Importing the package has no
@@ -24,6 +29,8 @@ from mlmc_tpu_torch.sim.synth_simulation_workspace import (
     SynthSimulationWorkspace)
 from mlmc_tpu_torch.sim.shooting import ShootingSimulation1D, ShootingSimulation2D
 from mlmc_tpu_torch.sim.diffusion import DiffusionSimulation
+from mlmc_tpu_torch.sim.diffusion3d import DiffusionSimulation3D
+from mlmc_tpu_torch.sim.flow_sim import FlowSim
 from mlmc_tpu_torch.random.correlated_field import (
     SpatialCorrelatedField, SpectralCorrelatedField, CirculantEmbeddingField,
     GSToolsSpatialCorrelatedField, FourierSpatialCorrelatedField, Field, Fields)

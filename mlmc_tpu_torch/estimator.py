@@ -24,7 +24,8 @@
 * the convergence-rate fit and the Richardson extrapolation.
 
 Numbers come back to the host as numpy arrays, as in ``mlmc_tpu``. The
-plot helpers are not ported yet.
+plot helpers (``plot_variances``, ``plot_bs_var_log``,
+``fine_coarse_violinplot``) draw with ``plot/`` on the host.
 """
 import hashlib
 
@@ -754,6 +755,68 @@ class Estimate:
             n_samples = int(n_samples)
         chunk_spec = next(self._sample_storage.chunks(level_id=level_id, n_samples=n_samples))
         return self._quantity.samples(chunk_spec=chunk_spec)
+
+    # ------------------------------------------------------------------ #
+    # plots (host-side diagnostics)
+    # ------------------------------------------------------------------ #
+    def _sample_vec(self, sample_vec):
+        return determine_sample_vec(
+            n_collected_samples=self._sample_storage.get_n_collected(),
+            n_levels=self._sample_storage.get_n_levels(),
+            sample_vector=sample_vec)
+
+    def plot_variances(self, sample_vec=None):
+        """Bootstrap breakdown of the estimate's variance by level."""
+        from mlmc_tpu_torch.plot import plots
+
+        var_plot = plots.VarianceBreakdown(10)
+        sample_vec = self._sample_vec(sample_vec)
+        self.est_bootstrap(n_subsamples=100, sample_vector=sample_vec)
+        var_plot.add_variances(self.mean_bs_l_vars, sample_vec,
+                               ref_level_vars=self._bs_level_mean_variance)
+        var_plot.show(None)
+
+    def plot_bs_var_log(self, sample_vec=None):
+        """Bootstrap variance diagnostics (reference estimator.py:231-247)."""
+        from mlmc_tpu_torch.plot import plots
+
+        sample_vec = self._sample_vec(sample_vec)
+        self.est_bootstrap(n_subsamples=100, sample_vector=sample_vec)
+        bs_plot = plots.BSplots(
+            n_samples=sample_vec, bs_n_samples=sample_vec,
+            n_moments=self.n_moments, ref_level_var=self.mean_bs_l_vars)
+        bs_plot.plot_bs_variances(self.var_bs_l_vars)
+        return bs_plot
+
+    def fine_coarse_violinplot(self):
+        """Violin comparison of each level's fine samples against the next
+        level's coarse samples (reference estimator.py:220-228 +
+        violinplot.py:28-69)."""
+        import pandas as pd
+        from mlmc_tpu_torch.plot import violinplot
+
+        n_levels = self._sample_storage.get_n_levels()
+        if n_levels <= 1:
+            violinplot.fine_coarse_violinplot(None)
+            return
+
+        def frame(values, kind, level_id):
+            label = "{} F{} {} C".format(level_id, " " * 5, level_id + 1)
+            return pd.DataFrame({"samples": values, "type": kind,
+                                 "level": label})
+
+        frames = []
+        for lid in range(n_levels):
+            values = as_tensor(self.get_level_samples(
+                lid, n_samples=self._sample_storage.get_n_collected()[lid])
+            )[0].cpu().numpy()
+            if lid == 0:
+                frames.append(frame(values[:, 0], "fine", 0))
+                continue
+            frames.append(frame(values[:, 1], "coarse", lid))
+            if lid + 1 < n_levels:
+                frames.append(frame(values[:, 0], "fine", lid))
+        violinplot.fine_coarse_violinplot(pd.concat(frames, axis=0))
 
 
 def estimate_domain(quantity, sample_storage, quantile=None):

@@ -33,16 +33,19 @@ ATTEMPT_MASK = (1 << (32 - CALL_BITS)) - 1
 CALLS_PER_BLOCK = 1 << 24
 
 
-def _word_blocks(seed, level_id, indices, attempts, n_calls):
+def _word_blocks(seed, level_id, indices, attempts, n_calls, first_call=0):
     """Yield the Philox words [b, n_calls, 4] (int64 holding uint32) of
-    consecutive blocks of samples, ``CALLS_PER_BLOCK`` calls at a time."""
-    n_calls = int(n_calls)
-    if not 1 <= n_calls <= 1 << CALL_BITS:
-        raise ValueError("a sample takes 1 .. 2^%d Philox calls, got %d"
-                         % (CALL_BITS, n_calls))
+    consecutive blocks of samples, ``CALLS_PER_BLOCK`` calls at a time;
+    the calls of a sample are ``first_call`` .. ``first_call + n_calls - 1``."""
+    n_calls, first_call = int(n_calls), int(first_call)
+    if not (1 <= n_calls and 0 <= first_call
+            and first_call + n_calls <= 1 << CALL_BITS):
+        raise ValueError("a sample takes 1 .. 2^%d Philox calls (numbered from "
+                         "0), got %d from call %d" % (CALL_BITS, n_calls, first_call))
     key = _key_words(seed)
     level_word = WIDE | (int(level_id) & (WIDE - 1))
-    calls = torch.arange(n_calls, dtype=torch.int64, device=indices.device)
+    calls = torch.arange(first_call, first_call + n_calls, dtype=torch.int64,
+                         device=indices.device)
     salt = (attempts & ATTEMPT_MASK) << CALL_BITS
     step = max(CALLS_PER_BLOCK // n_calls, 1)
     for start in range(0, indices.shape[0], step):
@@ -80,13 +83,17 @@ def _unit(bits):
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def keyed_uniforms(seed, level_id, indices, attempts, n, dtype=torch.float32):
+def keyed_uniforms(seed, level_id, indices, attempts, n, dtype=torch.float32,
+                   first_call=0):
     """``n`` uniforms in [0, 1) per sample: the top 24 bits of each word.
 
+    :param first_call: the sample's first Philox call: draws of one sample
+        that must not overlap take disjoint call ranges
     :return: tensor [B, n]
     """
     return _per_sample(
-        _word_blocks(seed, level_id, indices, attempts, -(-int(n) // 4)),
+        _word_blocks(seed, level_id, indices, attempts, -(-int(n) // 4),
+                     first_call),
         _unit, indices, n, dtype)
 
 
@@ -100,15 +107,18 @@ def _normal_pairs(words):
     return torch.stack((r * torch.cos(ang), r * torch.sin(ang)), dim=-1)
 
 
-def keyed_normals(seed, level_id, indices, attempts, n, dtype=torch.float32):
+def keyed_normals(seed, level_id, indices, attempts, n, dtype=torch.float32,
+                  first_call=0):
     """``n`` standard normals per sample: Box-Muller on word pairs, both
     the cosine and the sine branch (four normals per Philox call), computed
     in float32.
 
+    :param first_call: as in ``keyed_uniforms``
     :return: tensor [B, n]
     """
     return _per_sample(
-        _word_blocks(seed, level_id, indices, attempts, -(-int(n) // 4)),
+        _word_blocks(seed, level_id, indices, attempts, -(-int(n) // 4),
+                     first_call),
         _normal_pairs, indices, n, dtype)
 
 

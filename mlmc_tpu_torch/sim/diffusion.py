@@ -39,6 +39,119 @@ from mlmc_tpu_torch.sim.simulation import (Simulation, config_dtype, generator_o
 CG_CHECK_EVERY = 4
 
 
+def preconditioned_cg(matvec, M, b, tol, maxiter):
+    """Preconditioned CG on a batch of systems: ``b`` is [B, ...] (one
+    grid per sample, 2-D or 3-D), ``matvec`` and ``M`` act on such batches.
+
+    Each sample starts from x0 = 0 and stops on its own when
+    ``|r|^2 <= tol^2 |b|^2`` (the rule of ``jax.scipy.sparse.linalg.cg``)
+    or at ``maxiter``: its state is frozen by the ``active`` mask while the
+    others iterate. The host looks at the mask every ``CG_CHECK_EVERY``
+    iterations, which changes the time and never the result.
+
+    :return: (solutions like ``b``, iterations taken per sample [B])
+    """
+    dims = tuple(range(1, b.dim()))
+    lead = (-1,) + (1,) * len(dims)
+
+    def dot(u, v):
+        return (u * v).sum(dim=dims)
+
+    atol2 = tol * tol * dot(b, b)                        # [B]
+    x = torch.zeros_like(b)
+    r = b
+    z = M(r)
+    p = z
+    gamma = dot(r, z)
+    iters = torch.zeros(b.shape[0], dtype=torch.int64, device=b.device)
+    for k in range(int(maxiter)):
+        active = dot(r, r) > atol2
+        if k % CG_CHECK_EVERY == 0 and not bool(active.any()):
+            break
+        Ap = matvec(p)
+        alpha = (gamma / dot(p, Ap)).view(lead)
+        a = active.view(lead)
+        x = torch.where(a, x + alpha * p, x)
+        r = torch.where(a, r - alpha * Ap, r)
+        z = M(r)
+        gamma_new = dot(r, z)
+        p = torch.where(a, z + (gamma_new / gamma).view(lead) * p, p)
+        gamma = torch.where(active, gamma_new, gamma)
+        iters += active
+    return x, iters
+
+
+class DarcyBatchEntryPoints:
+    """The entry points the Darcy simulations share (2-D, 3-D, fractured).
+
+    A class that mixes them in says what one sample draws
+    (``_draws_shape``: ('noise', shape) of standard normals, or ('phases',
+    (M,)) of uniforms scaled to [0, 2 pi)) and computes a batch from those
+    draws (``_calculate(config, noise=..., phases=..., **extra)`` ->
+    (fine, coarse, ...)). A class whose samples draw more (a fracture
+    network) extends ``_sample_draws`` and ``_keyed_draws``, which return
+    ``_calculate``'s keywords.
+    """
+
+    @staticmethod
+    def _draws_kwargs(kind, draws):
+        if kind == "noise":
+            return {"noise": (draws[:, 0], draws[:, 1])}
+        return {"phases": 2 * np.pi * draws}
+
+    @classmethod
+    def _sample_draws(cls, config, generator, n, device):
+        """The draws of ``n`` samples from ``generator``, on ``device``."""
+        kind, shape = cls._draws_shape(config)
+        fn = torch.randn if kind == "noise" else torch.rand
+        draws = fn((int(n),) + shape, generator=generator,
+                   device=generator.device, dtype=config_dtype(config)).to(device)
+        return cls._draws_kwargs(kind, draws)
+
+    @classmethod
+    def _keyed_draws(cls, config, seed, level_id, indices, attempts):
+        """The draws of the samples (seed, level, index, attempt)."""
+        kind, shape = cls._draws_shape(config)
+        keyed = keyed_normals if kind == "noise" else keyed_uniforms
+        draws = keyed(seed, level_id, indices, attempts, int(np.prod(shape)),
+                      config_dtype(config))
+        return cls._draws_kwargs(kind, draws.reshape((indices.shape[0],) + shape))
+
+    @classmethod
+    def _from_draws(cls, config, draws):
+        fine, coarse = cls._calculate(config, **draws)[:2]
+        failed = torch.zeros(fine.shape[0], dtype=torch.bool, device=fine.device)
+        return fine, coarse, failed
+
+    @classmethod
+    def calculate(cls, config, seed, device=None):
+        """One sample from an integer seed, solved on ``device`` (None: the
+        current CUDA device): -> (fine [1], coarse [1]) as numpy. The draws
+        come from a host generator, so a seed names the same sample on
+        every device."""
+        device = resolve_device(device)
+        generator = torch.Generator().manual_seed(int(seed))
+        fine, coarse, _ = cls.calculate_batch(config, generator, 1, device=device)
+        return fine[0].cpu().numpy(), coarse[0].cpu().numpy()
+
+    @classmethod
+    def calculate_batch(cls, config, generator, n, device=None):
+        """Level batch drawn from ``generator``: -> (fine [n, 1],
+        coarse [n, 1], failed [n]) on ``device`` (None: the generator's;
+        with no generator the current CUDA device and a fresh generator
+        there, seeded by the system)."""
+        device = resolve_device(device, like=generator)
+        generator = generator_on(device) if generator is None else generator
+        return cls._from_draws(config, cls._sample_draws(config, generator, n, device))
+
+    @classmethod
+    def calculate_keyed_batch(cls, config, seed, level_id, indices, attempts):
+        """Level batch from sample identities: each sample's draws are a
+        function of (seed, level, index, attempt) alone (``random/keyed``)."""
+        return cls._from_draws(config, cls._keyed_draws(
+            config, seed, level_id, indices, attempts))
+
+
 def _wave_vectors_2d(model, corr_length, mode_no, seed=0):
     """2-D spectral-measure wave vectors [M, 2] (float64, host), drawn from
     a generator seeded by ``seed`` (see SpectralCorrelatedField)."""
@@ -50,7 +163,7 @@ def _wave_vectors_2d(model, corr_length, mode_no, seed=0):
     return y * (np.sqrt(2.0) / corr_length)
 
 
-class DiffusionSimulation(Simulation):
+class DiffusionSimulation(DarcyBatchEntryPoints, Simulation):
     """2-D Darcy flow with random log-normal conductivity."""
 
     N_MODES = 256
@@ -391,11 +504,7 @@ class DiffusionSimulation(Simulation):
         at the x=1 edge enter through half-cell transmissibilities;
         no-flux top/bottom. All transmissibilities are per unit h.
 
-        Each sample starts from x0 = 0 and stops on its own when
-        ``|r|^2 <= tol^2 |b|^2`` or at ``maxiter``: its state is frozen by
-        the ``active`` mask while the others iterate. The host looks at
-        the mask every ``CG_CHECK_EVERY`` iterations, which changes the time
-        and never the result.
+        Each sample stops on its own (``preconditioned_cg``).
 
         :return: (pressures [B, n, n], iterations taken per sample [B])
         """
@@ -418,32 +527,7 @@ class DiffusionSimulation(Simulation):
                           else cls.CG_MAXITER_FACTOR)
         maxiter = int(config.get("cg_maxiter_factor", default_factor) * n)
         tol = config.get("cg_tol", cls.CG_TOL)
-
-        def dot(u, v):
-            return (u * v).sum(dim=(-2, -1))
-
-        atol2 = tol * tol * dot(b, b)                        # [B]
-        x = torch.zeros_like(b)
-        r = b
-        z = M(r)
-        p = z
-        gamma = dot(r, z)
-        iters = torch.zeros(K.shape[0], dtype=torch.int64, device=K.device)
-        for k in range(maxiter):
-            active = dot(r, r) > atol2
-            if k % CG_CHECK_EVERY == 0 and not bool(active.any()):
-                break
-            Ap = matvec(p)
-            alpha = gamma / dot(p, Ap)
-            a3 = active[:, None, None]
-            x = torch.where(a3, x + alpha[:, None, None] * p, x)
-            r = torch.where(a3, r - alpha[:, None, None] * Ap, r)
-            z = M(r)
-            gamma_new = dot(r, z)
-            p = torch.where(a3, z + (gamma_new / gamma)[:, None, None] * p, p)
-            gamma = torch.where(active, gamma_new, gamma)
-            iters += active
-        return x, iters
+        return preconditioned_cg(matvec, M, b, tol, maxiter)
 
     @staticmethod
     def _flux(K, p):
@@ -456,14 +540,15 @@ class DiffusionSimulation(Simulation):
         return (2.0 * K[..., :, -1] * p[..., :, -1]).sum(dim=-1)
 
     @classmethod
-    def _calculate(cls, config, noise=None, phases=None):
-        """A batch from its draws.
+    def _calculate(cls, config, noise=None, phases=None, **extra):
+        """A batch from its draws (``extra``: further draws a subclass's
+        ``_conductivity`` takes).
 
         :return: (fine [B, 1], coarse [B, 1], CG iterations of the fine
             solves [B], of the coarse solves [B] or None)
         """
         fine_n, coarse_n = config["fine_n"], config["coarse_n"]
-        K_fine = cls._conductivity(config, fine_n, noise=noise, phases=phases)
+        K_fine = cls._conductivity(config, fine_n, noise=noise, phases=phases, **extra)
         p, it_fine = cls._solve_pressure(config, K_fine)
         fine = cls._flux(K_fine, p)
         if coarse_n > 0:
@@ -472,7 +557,7 @@ class DiffusionSimulation(Simulation):
                 # point-samples the fine realization
                 K_coarse = cls._coarse_from_fine_K(config, K_fine)
             else:
-                K_coarse = cls._conductivity(config, coarse_n, phases=phases)
+                K_coarse = cls._conductivity(config, coarse_n, phases=phases, **extra)
             del K_fine, p
             pc, it_coarse = cls._solve_pressure(config, K_coarse)
             coarse = cls._flux(K_coarse, pc)
@@ -487,53 +572,6 @@ class DiffusionSimulation(Simulation):
         if "_circ_eig" in config:
             return "noise", (2,) + tuple(np.shape(config["_circ_eig"]))
         return "phases", (len(config["_wave_vectors"]),)
-
-    @classmethod
-    def _from_draws(cls, config, kind, draws):
-        if kind == "noise":
-            out = cls._calculate(config, noise=(draws[:, 0], draws[:, 1]))
-        else:
-            out = cls._calculate(config, phases=2 * np.pi * draws)
-        fine, coarse = out[:2]
-        failed = torch.zeros(fine.shape[0], dtype=torch.bool, device=fine.device)
-        return fine, coarse, failed
-
-    @classmethod
-    def calculate(cls, config, seed, device=None):
-        """One sample from an integer seed, solved on ``device`` (None: the
-        current CUDA device): -> (fine [1], coarse [1]) as numpy. The draws
-        come from a host generator, so a seed names the same sample on
-        every device."""
-        device = resolve_device(device)
-        generator = torch.Generator().manual_seed(int(seed))
-        fine, coarse, _ = cls.calculate_batch(config, generator, 1, device=device)
-        return fine[0].cpu().numpy(), coarse[0].cpu().numpy()
-
-    @classmethod
-    def calculate_batch(cls, config, generator, n, device=None):
-        """Level batch drawn from ``generator``: -> (fine [n, 1],
-        coarse [n, 1], failed [n]) on ``device`` (None: the generator's;
-        with no generator the current CUDA device and a fresh generator
-        there, seeded by the system)."""
-        device = resolve_device(device, like=generator)
-        generator = generator_on(device) if generator is None else generator
-        kind, shape = cls._draws_shape(config)
-        fn = torch.randn if kind == "noise" else torch.rand
-        draws = fn((int(n),) + shape, generator=generator,
-                   device=generator.device, dtype=config_dtype(config)).to(device)
-        return cls._from_draws(config, kind, draws)
-
-    @classmethod
-    def calculate_keyed_batch(cls, config, seed, level_id, indices, attempts):
-        """Level batch from sample identities: each sample's noise (or
-        phases) is a function of (seed, level, index, attempt) alone
-        (``random/keyed``)."""
-        kind, shape = cls._draws_shape(config)
-        keyed = keyed_normals if kind == "noise" else keyed_uniforms
-        draws = keyed(seed, level_id, indices, attempts, int(np.prod(shape)),
-                      config_dtype(config))
-        return cls._from_draws(config, kind,
-                               draws.reshape((indices.shape[0],) + shape))
 
     def n_ops_estimate(self, step):
         n = 1.0 / step

@@ -14,6 +14,8 @@ import torch
 import mlmc_tpu_torch as mt
 from mlmc_tpu_torch.ops import cuda_kernels as ck
 from mlmc_tpu_torch.parallel import multihost
+from mlmc_tpu_torch.random import frac_geom
+from mlmc_tpu_torch.tool.flow_utils import create_corr_field
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -77,6 +79,14 @@ assert fine.shape == (4, 1) and bool((fine > 0).all())
 field = mt.CirculantEmbeddingField(dim=2, corr_length=0.3, grid_shape=(4, 4),
                                    grid_step=0.25, device="cpu")
 assert field.sample(gen).shape == (16,)
+from mlmc_tpu_torch.random import frac_geom
+for cls in (mt.DiffusionSimulation3D, frac_geom.FracturedDiffusionSimulation,
+            frac_geom.FracturedDiffusionSimulation3D):
+    level = cls(dict(n_modes=16, n_fractures=4)).level_instance([1 / 4], [1 / 2])
+    fine, _, _ = cls.calculate_batch(level.config_dict, gen, 2)
+    assert fine.shape == (2, 1) and bool((fine > 0).all())
+from mlmc_tpu_torch.tool import process_base, validation, distribution, config
+from mlmc_tpu_torch.plot import plots, violinplot
 import os
 import tempfile
 from mlmc_tpu_torch import native
@@ -110,6 +120,14 @@ with tempfile.TemporaryDirectory() as tmp:
         print("bin-round-trip-ok")
     else:
         print("bin-round-trip-skipped:", native.build_error())
+    mesh_file = os.path.join(tmp, "m.msh")
+    with open(mesh_file, "w") as f:
+        f.write("$MeshFormat\n2.2 0 8\n$EndMeshFormat\n$Nodes\n4\n1 0 0 0\n"
+                "2 1 0 0\n3 0 1 0\n4 1 1 0\n$EndNodes\n$Elements\n2\n"
+                "1 2 2 1 1 1 2 3\n2 2 2 1 1 2 4 3\n$EndElements\n")
+    mesh = mt.FlowSim.extract_mesh(mesh_file)
+    assert mesh["points"].shape == (2, 2), mesh
+    print("gmsh-parsed-by:", "native" if mt.FlowSim.parsers["native"] else "python")
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m in ("jax", "mlmc_tpu", "h5py", "yaml")
                or m.startswith(("jax.", "mlmc_tpu.", "h5py.", "yaml.")))]
@@ -124,7 +142,7 @@ def test_import_without_jax():
                           env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "isolated-ok" in proc.stdout
-    assert "bin-round-trip-" in proc.stdout
+    assert "bin-round-trip-" in proc.stdout and "gmsh-parsed-by:" in proc.stdout
 
 
 def test_no_jax_imports_in_sources():
@@ -139,7 +157,10 @@ def test_no_jax_imports_in_sources():
     h5py_allowed = {REPO / "mlmc_tpu_torch" / "tool" / "hdf5.py",
                     REPO / "chip_smoke.py"}
     files = sorted((REPO / "mlmc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert (REPO / "mlmc_tpu_torch" / "tool" / "hdf5.py") in files
+    for name in ("tool/hdf5.py", "tool/config.py", "tool/process_base.py",
+                 "tool/gmsh_io.py", "tool/stats_tests.py", "plot/plots.py",
+                 "sim/diffusion3d.py", "random/frac_geom.py", "sim/flow_sim.py"):
+        assert (REPO / "mlmc_tpu_torch" / name) in files, name
     offenders = []
     for f in files:
         text = f.read_text()
@@ -148,6 +169,8 @@ def test_no_jax_imports_in_sources():
             offenders.append(str(f))
     assert not offenders, offenders
     assert h5py_at_all.search((REPO / "mlmc_tpu_torch/tool/hdf5.py").read_text())
+    # the gmsh parser is the port's own copy of the source
+    assert "jax" not in (REPO / "mlmc_tpu_torch/native/gmsh_fast.cpp").read_text()
 
 
 def _shooting_level():
@@ -162,6 +185,27 @@ def _shooting_level():
 def _darcy_level():
     sim = mt.DiffusionSimulation(dict(field_method="circulant", corr_length=0.3))
     return sim.level_instance([1 / 8], [1 / 4]).config_dict
+
+
+def _darcy3d_level():
+    return mt.DiffusionSimulation3D(dict(n_modes=16)).level_instance([1 / 4], [1 / 2]).config_dict
+
+
+def _fractured_level():
+    return frac_geom.FracturedDiffusionSimulation(dict(
+        field_method="circulant", corr_length=0.3, n_fractures=6)).level_instance(
+        [1 / 8], [1 / 4]).config_dict
+
+
+def _fractured3d_level():
+    return frac_geom.FracturedDiffusionSimulation3D(dict(
+        n_modes=16, n_fractures=6)).level_instance([1 / 4], [1 / 2]).config_dict
+
+
+_TRIANGLE = {"points": np.array([[0.2, 0.3], [0.6, 0.5]]),
+             "point_region_ids": np.array([1, 1]), "region_map": {"bulk": 1}}
+_FLOW_CONFIG = {"fields_params": dict(model="fourier", dim=2, mode_no=8),
+                "fields_used_params": ["conductivity"]}
 
 
 def _host_estimate():
@@ -207,6 +251,23 @@ def _default_device_calls():
             _shooting_level(), 5),
         "diffusion_calculate": lambda: mt.DiffusionSimulation.calculate(
             _darcy_level(), 5),
+        "diffusion3d_calculate_batch": lambda: mt.DiffusionSimulation3D.calculate_batch(
+            _darcy3d_level(), None, 2),
+        "diffusion3d_calculate": lambda: mt.DiffusionSimulation3D.calculate(
+            _darcy3d_level(), 5),
+        "fractured_calculate_batch": lambda: frac_geom.FracturedDiffusionSimulation
+        .calculate_batch(_fractured_level(), None, 2),
+        "fractured_calculate": lambda: frac_geom.FracturedDiffusionSimulation.calculate(
+            _fractured_level(), 5),
+        "fractured3d_calculate_batch": lambda: frac_geom.FracturedDiffusionSimulation3D
+        .calculate_batch(_fractured3d_level(), None, 2),
+        "fractured3d_calculate": lambda: frac_geom.FracturedDiffusionSimulation3D.calculate(
+            _fractured3d_level(), 5),
+        "flow_sim_fields": lambda: mt.FlowSim._draw_fields(
+            _FLOW_CONFIG, 5, _TRIANGLE, None),
+        "flow_sim_calculate": lambda: mt.FlowSim.calculate(
+            {"fine": {"common_files_dir": "missing"}, "coarse": {"step": 0}}, 5),
+        "create_corr_field": lambda: create_corr_field(model="fourier", mode_no=8),
         "spatial_field": lambda: mt.SpatialCorrelatedField(dim=2),
         "spectral_field": lambda: mt.SpectralCorrelatedField(dim=2, mode_no=8),
         "circulant_field": lambda: mt.CirculantEmbeddingField(
@@ -269,7 +330,10 @@ def test_entry_points_default_to_the_card(name):
 @pytest.mark.parametrize("sim,level,width", [
     (mt.ShootingSimulation1D, _shooting_level, 1),
     (mt.ShootingSimulation2D, _shooting_level, 2),
-    (mt.DiffusionSimulation, _darcy_level, 1)])
+    (mt.DiffusionSimulation, _darcy_level, 1),
+    (mt.DiffusionSimulation3D, _darcy3d_level, 1),
+    (frac_geom.FracturedDiffusionSimulation, _fractured_level, 1),
+    (frac_geom.FracturedDiffusionSimulation3D, _fractured3d_level, 1)])
 def test_simulations_default_to_the_card_on_a_card(sim, level, width):
     """With a card and nothing named, a batch draws from a fresh generator
     on the card and stays there; ``calculate`` computes there and returns
@@ -283,6 +347,20 @@ def test_simulations_default_to_the_card_on_a_card(sim, level, width):
     assert isinstance(on_card[0], np.ndarray) and on_card[0].shape == (width,)
     np.testing.assert_allclose(on_card[0], on_host[0], rtol=1e-4)   # float32
     np.testing.assert_allclose(on_card[1], on_host[1], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flow_sim_fields_default_to_the_card_on_a_card():
+    """FlowSim's joint field is computed on the card when nothing is named,
+    and equals the CPU's for the same seed (the draws come from a host
+    generator)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the default device is the card")
+    on_card = mt.FlowSim._draw_fields(_FLOW_CONFIG, 5, _TRIANGLE, None)
+    on_host = mt.FlowSim._draw_fields(_FLOW_CONFIG, 5, _TRIANGLE, None, device="cpu")
+    assert isinstance(on_card[0]["conductivity"], np.ndarray)
+    np.testing.assert_allclose(on_card[0]["conductivity"], on_host[0]["conductivity"],
+                               rtol=1e-12)
 
 
 @pytest.mark.parametrize("call", ["rng", "noise", "normals"])

@@ -20,6 +20,17 @@ from mlmc_tpu_torch.parallel import SampleMesh, multihost
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True)
+def _working_directory():
+    """Start in a working directory that exists: a workspace test run
+    earlier in this process (the pools of both packages change into sample
+    directories and remove them) may have left it deleted."""
+    try:
+        os.getcwd()
+    except FileNotFoundError:
+        os.chdir(os.path.dirname(os.path.abspath(__file__)))
+
+
 def test_two_process_gloo_world(tmp_path):
     import torch_mesh_worker as worker
 

@@ -19,6 +19,17 @@ from torch_pool_probe import ProbeSimulation
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _working_directory():
+    """Start in a working directory that exists: a workspace test run
+    earlier in this process (the pools of both packages change into sample
+    directories and remove them) may have left it deleted."""
+    try:
+        os.getcwd()
+    except FileNotFoundError:
+        os.chdir(os.path.dirname(os.path.abspath(__file__)))
+
 LEVELS = [[0.1], [0.01]]
 
 

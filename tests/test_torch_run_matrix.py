@@ -7,6 +7,8 @@ combinations through the target-variance loop, then kill-and-resume from
 each file storage (held against mlmc_tpu resuming the same file's
 bookkeeping) and renew-failed through a reopened file.
 """
+import os
+
 import numpy as np
 import pytest
 import scipy.stats as stats
@@ -17,6 +19,17 @@ import mlmc_tpu_torch as mt
 from mlmc_tpu_torch import native
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _working_directory():
+    """Start in a working directory that exists: a workspace test run
+    earlier in this process (the pools of both packages change into sample
+    directories and remove them) may have left it deleted."""
+    try:
+        os.getcwd()
+    except FileNotFoundError:
+        os.chdir(os.path.dirname(os.path.abspath(__file__)))
 
 STEPS = [[0.1], [0.001]]
 
