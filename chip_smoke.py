@@ -101,11 +101,35 @@ Run from the root of a checkout:  python3 chip_smoke.py
       OneProcessPool; the native gmsh parser must parse the meshes;
    fails unless kernels C and D were launched; holds them against their
    plain versions at the 3-D run's streams; one JSON line;
-9. holds each kernel's outputs at its path's shapes against its plain
+9. the sde_qmc path, with the counters reset just before it (the sizes of
+   bench_extra.py's bench_lattice, bench_qmc(_compact), bench_sde,
+   bench_importance, bench_heston's SDE half, bench_merton, bench_vg,
+   bench_rbergomi and bench_unbiased):
+   a. Sobol' bits of d=256 at 2^20 points, raw and Owen-scrambled, equal bit
+      for bit to the same calls on the CPU; the d=8 CBC lattice (n=2^12,
+      R=16) within 6 se of two closed forms;
+   b. MLQMC: the 5-level synthetic QoI to 1e-12 on Sobol' and on the
+      lattice, and again over SampleMesh([dev, dev]) (sums equal to one
+      device bit for bit); the shooting ODE (256 phase dims) to 1e-8;
+   c. SDE batches: GBM Milstein 256+64 at 2^16 (samples/s, device events,
+      idle share; keyed rows equal to the same indices in two halves), the
+      deep-OTM Girsanov call, Heston (3 levels), Merton and variance gamma
+      (4 levels, keyed draws: inversion Poisson, boosted Marsaglia-Tsang
+      gamma) and rBergomi (4 levels, the eta=0 limit), each price within
+      its bound of its closed form;
+   d. the MLQMC GBM call to 1e-9 (gain > 5 on every level) and the
+      Rhee-Glynn coupled-sum call to 1e-8 (its deepest level printed);
+   e. the stored SDE run: GBM path functionals over 4 levels through
+      Sampler -> DeviceBatchPool -> DeviceMemory, one allocation round, the
+      call in the Quantity algebra against Black-Scholes, Legendre(10)
+      moments of the terminal value by kernels C and D;
+   fails unless kernels C and D were launched; holds them against their
+   plain versions at the stored run's streams; one JSON line;
+10. holds each kernel's outputs at its path's shapes against its plain
    version (kernel C at the e2e, config-4 and structured streams; kernel D
    at the e2e and structured streams, also against an exact f64 summation,
    and two launches of it bit for bit against each other);
-10. times each kernel and its plain version at those shapes and computes
+11. times each kernel and its plain version at those shapes and computes
    each kernel's bound from this run's inputs; kernels C and D also at
    their largest launch, the structured tier's 12 x 5 streams.
 
@@ -113,8 +137,8 @@ Exits non-zero, printing no result, without a CUDA device or outside a
 checkout. The last line is {"ok": true, "device": {...}}; the line before
 it lists the kernels with their launch counts (of all the paths, and by
 path under "launches_by_path"), errors, times and bounds; each
-configuration of the simulations path, and the persisted, sharded and
-darcy3d paths, print one JSON line of their own.
+configuration of the simulations path, and the persisted, sharded,
+darcy3d and sde_qmc paths, print one JSON line of their own.
 """
 import json
 import os
@@ -2209,6 +2233,509 @@ def darcy3d_path(torch, dev):
     return counts, {"samples_mlmc": errs[0], "samples_ext": errs[1]}
 
 
+# ------------------------------------------------------------------------ #
+# the sde_qmc path: QMC point sets, MLQMC, the SDE family, the stored run
+# ------------------------------------------------------------------------ #
+# sizes of bench_extra.py's bench_lattice, bench_qmc(_compact), bench_sde,
+# bench_importance, bench_heston, bench_merton, bench_vg, bench_rbergomi and
+# bench_unbiased; the stored SDE run's levels and starting counts
+SDE_QMC = dict(
+    sobol_dim=256, sobol_points=1 << 20, sobol_chunk=1 << 16,
+    lattice=(8, 1 << 12, 16),
+    qmc_synth=dict(R=16, chunk=1 << 16, n_init=1 << 14, target=1e-12),
+    qmc_shooting=dict(R=16, chunk=1 << 13, n_init=1 << 12, target=1e-8),
+    gbm_batch=1 << 16, otm_batch=1 << 17, heston_batch=1 << 17,
+    merton_batch=1 << 17, vg_batch=1 << 17, rbergomi_batch=1 << 15,
+    qmc_sde=dict(R=12, chunk=1 << 11, n_init=1 << 11, target=1e-9),
+    # bench_unbiased's target is 1e-8: ~1.7e6 draws, whose deepest levels
+    # (8 * 4^l steps, a few kernel launches per step) cost minutes on the
+    # card; 5e-8 keeps ~3.5e5 draws and the ladder at level 5 or 6
+    unbiased=dict(chunk=1 << 13, min_chunk=256, warm=1 << 14,
+                  n_init=1 << 15, target=5e-8),
+    stored_levels=[1 / 8, 1 / 32, 1 / 128, 1 / 512],
+    stored_n=[1 << 20, 1 << 18, 1 << 16, 1 << 14],
+    stored_target=2e-8,
+)
+RATE, SIGMA = 0.05, 0.2
+
+
+def _sde_telescope(torch, levels, batch_fn):
+    """sum over levels of mean(fine - coarse) and its standard error, each
+    level from its own batch; also the level variances."""
+    total, var, lvars = 0.0, 0.0, []
+    for nf, nc in levels:
+        f, c = batch_fn(nf, nc)
+        d = (f - c).double()
+        total += float(d.mean())
+        var += float(d.var()) / d.shape[0]
+        lvars.append(float(d.var()))
+    return total, float(np.sqrt(var)), lvars
+
+
+def _sde_point_sets(torch, dev, mt, out):
+    from mlmc_tpu_torch.ops import lattice, sobol
+
+    P = SDE_QMC
+    d, n, step = P["sobol_dim"], P["sobol_points"], P["sobol_chunk"]
+    host_step = min(step, 1 << 12)
+    dv = sobol.direction_numbers(d)
+    seeds = sobol.scramble_seeds(SEED, 0, 1, d, device=dev)[0]
+    dv_t = torch.as_tensor(dv.astype(np.int64))
+    card_s = host_s = 0.0
+    for start in range(0, n, step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        raw = sobol.sobol_bits(dv_t.to(dev), start, step)
+        scr = sobol.owen_scramble(raw, seeds[None])
+        torch.cuda.synchronize()
+        card_s += time.perf_counter() - t0
+        raw, scr = raw.cpu(), scr.cpu()
+        t0 = time.perf_counter()
+        raw_h = sobol.sobol_bits(dv_t, start, step, device="cpu")
+        _require(torch.equal(raw, raw_h),
+                 "raw Sobol' bits at points %d.. differ between the card and the CPU" % start)
+        for sub in range(0, step, host_step):     # slices that stay in the CPU's cache
+            scr_h = sobol.owen_scramble(raw_h[sub:sub + host_step], seeds.cpu()[None])
+            _require(torch.equal(scr[sub:sub + host_step], scr_h),
+                     "scrambled Sobol' bits at points %d.. differ between the card and "
+                     "the CPU" % (start + sub))
+        host_s += time.perf_counter() - t0
+    out["sobol"] = dict(dim=d, points=n, card_s=card_s, cpu_s=host_s)
+    print("Sobol' d=%d, %d points, raw and Owen-scrambled: equal bit for bit on the "
+          "card and the CPU (card %.3f s, CPU %.3f s on %d threads, host clock)"
+          % (d, n, card_s, host_s, torch.get_num_threads()))
+
+    dl, nl, R = P["lattice"]
+    t0 = time.perf_counter()
+    z = lattice.cbc_vector(nl, dl)
+    cbc_s = time.perf_counter() - t0
+    f_per = lambda u: torch.prod(1.0 + 0.25 * (u * u - u + 1.0 / 6.0), dim=1)
+    f_exp = lambda u: torch.prod(torch.exp(u), dim=1)
+    checks = {}
+    for name, fn, tent, truth in (("periodic", f_per, False, 1.0),
+                                  ("tent_exp", f_exp, True, (np.e - 1.0) ** dl)):
+        res = lattice.lattice_estimate(fn, dl, n=nl, n_shifts=R, z=z, seed=SEED,
+                                       use_tent=tent, dtype=torch.float64, device=dev)
+        err = abs(res["mean"] - truth)
+        _require(err <= 6 * res["se"], "lattice %s: |mean - %.6g| = %.3g > 6 se %.3g"
+                 % (name, truth, err, 6 * res["se"]))
+        checks[name] = dict(mean=res["mean"], truth=truth, err=err, se=res["se"])
+    out["lattice"] = dict(dim=dl, n=nl, shifts=R, cbc_s=cbc_s, **checks)
+    print("lattice d=%d n=%d R=%d: CBC %.3f s; periodic |err| %.3g (6 se %.3g), tent exp "
+          "rel err %.3g (6 se / truth %.3g)"
+          % (dl, nl, R, cbc_s, checks["periodic"]["err"], 6 * checks["periodic"]["se"],
+             checks["tent_exp"]["err"] / checks["tent_exp"]["truth"],
+             6 * checks["tent_exp"]["se"] / checks["tent_exp"]["truth"]))
+
+
+def _qmc_run(mt, fns, dims, p, target, seed, dev, **kw):
+    """bench_qmc's protocol: one warm extension of level 0, then the timed
+    adaptive run; returns (result, wall, MC evaluations for the target)."""
+    import torch
+
+    ml = mt.MLQMC(fns, dims, n_randomizations=p["R"], seed=seed,
+                  chunk_size=p["chunk"], device=dev, **kw)
+    if "cost_per_sample" not in kw:
+        ml.extend(0, p["chunk"])     # bench_qmc warms level 0 first
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ml.run(target_var=target, n_init=p["n_init"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mc = float(np.sum(np.sqrt(ml.point_variances()))) ** 2 / target
+    _require(res["target_met"], "MLQMC missed its target %g: var %.4g" % (target, res["var"]))
+    return ml, res, wall, mc
+
+
+def _sde_mlqmc(torch, dev, mt, out):
+    from mlmc_tpu_torch.parallel import SampleMesh
+
+    P = SDE_QMC
+    lp = [[0.5], [0.25], [0.125], [0.0625], [0.03125]]
+    fns, dims = mt.synth_qmc_level_fns(lp, distr="norm")
+    p = P["qmc_synth"]
+    runs = {}
+    for point_set in ("sobol", "lattice"):
+        _, res, wall, mc = _qmc_run(mt, fns, dims, p, p["target"], 11, dev,
+                                    point_set=point_set)
+        evals = int(np.sum(res["n_evaluations"]))
+        runs[point_set] = dict(wall_s=wall, evaluations=evals, mc_evaluations=mc,
+                               mc_over_qmc=mc / evals, mean=res["mean"], var=res["var"],
+                               n_samples=res["n_samples"].tolist(), rounds=res["rounds"])
+        print("MLQMC synthetic 5 levels (%s) to %g: %.3f s, %d evaluations, n %s, var %.4g; "
+              "MC would need %.4g: MC/QMC %.1f"
+              % (point_set, p["target"], wall, evals, res["n_samples"].tolist(),
+                 res["var"], mc, mc / evals))
+    out["qmc_synth"] = runs
+
+    # the same run over two shards of the card: the sums equal, shard order
+    cost = [1.0] * len(lp)
+    one, res1, _, _ = _qmc_run(mt, fns, dims, p, p["target"], 11, dev, cost_per_sample=cost)
+    two, res2, _, _ = _qmc_run(mt, fns, dims, p, p["target"], 11, None, cost_per_sample=cost,
+                               mesh=SampleMesh([dev, dev], group=False))
+    _require(np.array_equal(res1["n_samples"], res2["n_samples"]) and all(
+        np.array_equal(a.sums, b.sums) and np.array_equal(a.sums_sq, b.sums_sq)
+        for a, b in zip(one._levels, two._levels)),
+        "MLQMC over SampleMesh([dev, dev]) differs from one device")
+    out["qmc_mesh_equal"] = True
+    print("MLQMC synthetic over SampleMesh([dev, dev]): n %s and every randomization's "
+          "sums equal to the one-device run bit for bit" % res2["n_samples"].tolist())
+
+    shoot = mt.ShootingSimulation1D(dict(
+        start_position=(0.0, 0.0), start_velocity=(10.0, 0.0),
+        area_borders=(-2000.0, 2000.0, -2000.0, 2000.0), max_time=10.0,
+        complexity=1000, n_modes=256,
+        fields_params=dict(model="gauss", corr_length=0.1, sigma=0.5, log=False)))
+    sfns, sdims = mt.shooting_qmc_level_fns(shoot, [[5.0], [2.0], [1.0]])
+    p = P["qmc_shooting"]
+    _, res, wall, mc = _qmc_run(mt, sfns, sdims, p, p["target"], 13, dev)
+    evals = int(np.sum(res["n_evaluations"]))
+    out["qmc_shooting"] = dict(wall_s=wall, evaluations=evals, mc_evaluations=mc,
+                               mc_over_qmc=mc / evals, mean=res["mean"], var=res["var"],
+                               n_samples=res["n_samples"].tolist(),
+                               variance_reduction=res["mc_variance_reduction"].tolist())
+    print("MLQMC shooting (256 phase dims, 200/500/1000 steps) to %g: %.3f s, %d "
+          "evaluations, n %s; MC would need %.4g: MC/QMC %.1f; gain per level %s"
+          % (p["target"], wall, evals, res["n_samples"].tolist(), mc, mc / evals,
+             np.round(res["mc_variance_reduction"], 1).tolist()))
+
+
+def _sde_batches(torch, dev, mt, out):
+    from mlmc_tpu_torch.sim import jumps, levy, rough, sde
+    from mlmc_tpu_torch.tool.profile_simulations import device_breakdown
+
+    P = SDE_QMC
+    disc = float(np.exp(-RATE))
+    # ---- GBM Milstein 256 + 64 -------------------------------------- #
+    sim = mt.SDESimulation(dict(model=mt.gbm(RATE, SIGMA, 1.0), scheme="milstein",
+                                payoff=sde.european_call(1.0, disc)))
+    cfg = sim.level_instance([1 / 256], [1 / 64]).config_dict
+    B = P["gbm_batch"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ms = _time_ms(torch, lambda: mt.SDESimulation.calculate_batch(cfg, gen, B), reps=3)
+    prof = device_breakdown("GBM Milstein 256+64", lambda: mt.SDESimulation.calculate_batch(
+        cfg, gen, B), 1, top=4)
+    idx = torch.arange(B, device=dev)
+    whole = mt.SDESimulation.calculate_keyed_batch(cfg, SEED, 1, idx, torch.zeros_like(idx))
+    halves = [mt.SDESimulation.calculate_keyed_batch(cfg, SEED, 1, h, torch.zeros_like(h))
+              for h in (idx[:B // 2], idx[B // 2:])]
+    for k in (0, 1):
+        _require(torch.equal(whole[k], torch.cat([h[k] for h in halves])),
+                 "GBM keyed batch differs from the same indices in two halves")
+    out["gbm_batch"] = dict(batch=B, batch_ms=ms, samples_per_s=B / ms * 1e3,
+                            device_events_per_batch=prof["events_per_call"],
+                            device_busy_ms=prof["busy_ms"],
+                            device_idle_share=prof["idle_share"])
+    print("GBM Milstein 256+64 batch of %d: %.3f ms (CUDA events, median of 3): %.4g coupled "
+          "samples/s; %.0f device events, busy %.3f ms, idle %.1f%%; keyed rows equal to the "
+          "same indices in two halves bit for bit"
+          % (B, ms, B / ms * 1e3, prof["events_per_call"], prof["busy_ms"],
+             100 * prof["idle_share"]))
+
+    # ---- deep-OTM call under the Girsanov tilt ----------------------- #
+    K = 1.8
+    theta = mt.gbm_call_shift(RATE, SIGMA, 1.0, K, 1.0)
+    B = P["otm_batch"]
+    stats = {}
+    for name, shift in (("is", theta), ("plain", None)):
+        extra = {"drift_shift": shift} if shift else {}
+        c = mt.SDESimulation(dict(model=mt.gbm(RATE, SIGMA, 1.0), scheme="milstein",
+                                  payoff=sde.european_call(K, disc), **extra)
+                             ).level_instance([1 / 256], [0]).config_dict
+        g = torch.Generator(device=dev).manual_seed(SEED + len(name))
+        v = mt.SDESimulation.calculate_batch(c, g, B)[0][:, 0].double()
+        stats[name] = (float(v.mean()), float(v.var()))
+    bs = mt.black_scholes_call(1.0, K, RATE, SIGMA, 1.0)
+    se = np.sqrt(stats["is"][1] / B)
+    _require(abs(stats["is"][0] - bs) <= 6 * se,
+             "deep-OTM IS price %.6g vs Black-Scholes %.6g: > 6 se %.3g"
+             % (stats["is"][0], bs, 6 * se))
+    ratio = stats["plain"][1] / stats["is"][1]
+    out["otm_is"] = dict(theta=theta, price=stats["is"][0], black_scholes=bs, se=se,
+                         plain_mean=stats["plain"][0], variance_ratio=ratio)
+    print("deep-OTM call K=1.8 (theta %.4f, B=%d): IS %.6g vs Black-Scholes %.6g (se %.3g); "
+          "plain/IS variance ratio %.1f" % (theta, B, stats["is"][0], bs, se, ratio))
+
+    # ---- Heston ------------------------------------------------------- #
+    hp = dict(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
+    p_ref = sde.heston_call_price(1.0, 1.0, RATE, T=1.0, **hp)
+    model = sde.heston(mu=RATE, s0=1.0, **hp)
+    B = P["heston_batch"]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def heston_level(nf, nc):
+        z = torch.randn((B, nf, 2), generator=g, device=dev)
+        pf_f, _, pf_c = sde.coupled_system_functionals(
+            dict(model=model, total_time=1.0, n_fine=nf, n_coarse=nc), z)
+        pay = lambda pf: disc * torch.clamp(pf.terminal[:, 0] - 1.0, min=0.0)
+        return pay(pf_f), (pay(pf_c) if pf_c is not None else torch.zeros(B, device=dev))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    price, se, lvars = _sde_telescope(torch, [(32, 0), (128, 32), (512, 128)], heston_level)
+    wall = time.perf_counter() - t0
+    _require(abs(price - p_ref) <= 6 * se + 2e-4,
+             "Heston %.6g vs semi-analytic %.6g: > 6 se + 2e-4 (se %.3g)" % (price, p_ref, se))
+    out["heston"] = dict(price=price, semi_analytic=p_ref, se=se, wall_s=wall,
+                         coupled_paths_per_s=3 * B / wall, level_vars=lvars)
+    print("Heston levels (32,0),(128,32),(512,128), B=%d each: %.6g vs %.6g (se %.3g), "
+          "%.3f s: %.4g coupled paths/s" % (B, price, p_ref, se, wall, 3 * B / wall))
+
+    # ---- Merton (keyed draws: the inversion Poisson) ------------------ #
+    lam, jm, jv = 0.8, -0.1, 0.15
+    msim = jumps.JumpDiffusionSimulation(dict(
+        model=jumps.merton(RATE, SIGMA, lam, jm, jv, 1.0), payoff=sde.european_call(1.0, disc)))
+    p_ref = jumps.merton_call_price(1.0, 1.0, RATE, SIGMA, lam, jm, jv, 1.0)
+    B = P["merton_batch"]
+
+    def keyed_level(S, simobj, nf, nc, level, B):
+        c = simobj.level_instance([1.0 / nf], [1.0 / nc if nc else 0]).config_dict
+        ids = torch.arange(B, device=dev)
+        f, cc, _ = S.calculate_keyed_batch(c, SEED, level, ids, torch.zeros_like(ids))
+        return f[:, 0], cc[:, 0]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    levels = [(16, 0), (32, 16), (64, 32), (128, 64)]
+    price, se, lvars = _sde_telescope(torch, levels, lambda nf, nc: keyed_level(
+        jumps.JumpDiffusionSimulation, msim, nf, nc, levels.index((nf, nc)), B))
+    wall = time.perf_counter() - t0
+    _require(abs(price - p_ref) <= 6 * se + 1e-3,
+             "Merton %.6g vs closed form %.6g: > 6 se + 1e-3 (se %.3g)" % (price, p_ref, se))
+    out["merton"] = dict(price=price, closed_form=p_ref, se=se, wall_s=wall,
+                         coupled_paths_per_s=len(levels) * B / wall, level_vars=lvars)
+    print("Merton levels %s, B=%d each (keyed, inversion Poisson): %.6g vs %.6g (se %.3g), "
+          "%.3f s: %.4g coupled paths/s" % (levels, B, price, p_ref, se, wall,
+                                            len(levels) * B / wall))
+
+    # ---- variance gamma (keyed draws: the boosted Marsaglia-Tsang) ---- #
+    vgp = dict(sigma=0.12, theta=-0.14, nu=0.2)
+    vmodel = levy.variance_gamma(RATE, **vgp)
+    B = P["vg_batch"]
+    vsim = levy.VarianceGammaSimulation(dict(model=vmodel, payoff=sde.european_call(1.0, disc)))
+    f0, _ = keyed_level(levy.VarianceGammaSimulation, vsim, 4, 0, 0, B)
+    call = f0.double()
+    ref = levy.vg_call_price(1.0, 1.0, RATE, T=1.0, **vgp)
+    se0 = float(call.std() / np.sqrt(B))
+    _require(abs(float(call.mean()) - ref) <= 6 * se0,
+             "VG call %.6g vs COS %.6g: > 6 se %.3g" % (float(call.mean()), ref, se0))
+    asim = levy.VarianceGammaSimulation(dict(model=vmodel, payoff=sde.asian_call(0.95, disc)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vlevels = [(8, 0), (16, 8), (32, 16), (64, 32)]
+    asian, ase, alvars = _sde_telescope(torch, vlevels, lambda nf, nc: keyed_level(
+        levy.VarianceGammaSimulation, asim, nf, nc, 10 + vlevels.index((nf, nc)), B))
+    wall = time.perf_counter() - t0
+    out["vg"] = dict(call=float(call.mean()), cos=ref, call_se=se0, asian=asian,
+                     asian_se=ase, asian_wall_s=wall,
+                     coupled_paths_per_s=len(vlevels) * B / wall, level_vars=alvars)
+    print("VG terminal call (B=%d, keyed gamma): %.6g vs COS %.6g (se %.3g); Asian telescope "
+          "%s: %.6g (se %.3g), %.3f s: %.4g coupled paths/s"
+          % (B, float(call.mean()), ref, se0, vlevels, asian, ase, wall,
+             len(vlevels) * B / wall))
+
+    # ---- rBergomi ----------------------------------------------------- #
+    B = P["rbergomi_batch"]
+    rmodel = rough.rbergomi()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rb_level(model, nf, nc):
+        z = torch.randn((B, 3 * nf), generator=g, device=dev)
+        s_f, s_c = rough.coupled_rbergomi_paths(
+            dict(model=model, total_time=1.0, n_fine=nf, n_coarse=nc),
+            z[:, :2 * nf], z[:, 2 * nf:] * np.sqrt(1.0 / nf))
+        pay = lambda s: torch.clamp(s - 1.0, min=0.0)
+        return pay(s_f), (pay(s_c) if s_c is not None else torch.zeros(B, device=dev))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rlevels = [(32, 0), (64, 32), (128, 64), (256, 128)]
+    price, se, lvars = _sde_telescope(torch, rlevels, lambda nf, nc: rb_level(rmodel, nf, nc))
+    wall = time.perf_counter() - t0
+    _require(np.isfinite(price) and 0.0 < price < 0.2, "rBergomi price %.6g" % price)
+    m0 = rough.rbergomi(xi0=0.04, eta=0.0, hurst=0.1, rho=-0.9)
+    d0, _ = rb_level(m0, 64, 0)
+    d0 = d0.double()
+    bs = mt.black_scholes_call(1.0, 1.0, 0.0, 0.2, 1.0)
+    se0 = float(d0.std() / np.sqrt(B))
+    _require(abs(float(d0.mean()) - bs) <= 6 * se0,
+             "rBergomi eta=0 %.6g vs Black-Scholes %.6g: > 6 se %.3g"
+             % (float(d0.mean()), bs, se0))
+    out["rbergomi"] = dict(price=price, se=se, wall_s=wall,
+                           coupled_paths_per_s=len(rlevels) * B / wall,
+                           level_var_ratios=[lvars[i + 1] / lvars[i]
+                                             for i in range(len(lvars) - 1)],
+                           eta0=float(d0.mean()), eta0_black_scholes=bs, eta0_se=se0)
+    print("rBergomi levels %s, B=%d each: ATM call %.6g (se %.3g), %.3f s: %.4g coupled "
+          "paths/s; eta=0: %.6g vs Black-Scholes %.6g (se %.3g)"
+          % (rlevels, B, price, se, wall, len(rlevels) * B / wall, float(d0.mean()), bs, se0))
+
+
+def _sde_qmc_and_unbiased(torch, dev, mt, out):
+    from mlmc_tpu_torch.sim import sde
+
+    P = SDE_QMC
+    disc = float(np.exp(-RATE))
+    sim = mt.SDESimulation(dict(model=mt.gbm(RATE, SIGMA, 1.0), scheme="milstein",
+                                payoff=sde.european_call(1.0, disc)))
+    fns, dims = mt.sde_qmc_level_fns(sim, [[1 / 8], [1 / 32], [1 / 128]])
+    p = P["qmc_sde"]
+    _, res, wall, mc = _qmc_run(mt, fns, dims, p, p["target"], 7, dev)
+    bs = mt.black_scholes_call(1.0, 1.0, RATE, SIGMA, 1.0)
+    err = abs(res["mean"] - bs)
+    _require(err <= 6 * np.sqrt(res["var"]) + 3e-4,
+             "MLQMC SDE call %.6g vs Black-Scholes %.6g: > 6 sigma + 3e-4" % (res["mean"], bs))
+    gain = res["mc_variance_reduction"]
+    _require(bool(np.all(gain > 5)), "MLQMC SDE call: mc_variance_reduction %s" % gain)
+    evals = int(np.sum(res["n_evaluations"]))
+    out["qmc_sde"] = dict(wall_s=wall, evaluations=evals, price=res["mean"],
+                          black_scholes=bs, err=err, var=res["var"],
+                          n_samples=res["n_samples"].tolist(),
+                          variance_reduction=gain.tolist(), mc_over_qmc=mc / evals)
+    print("MLQMC GBM call (levels 1/8, 1/32, 1/128, R=12) to %g: %.3f s, %d evaluations, "
+          "%.6g vs Black-Scholes %.6g; gain per level %s; MC/QMC %.1f"
+          % (p["target"], wall, evals, res["mean"], bs, np.round(gain, 1).tolist(),
+             mc / evals))
+
+    u = P["unbiased"]
+    strike = 1.05
+    usim = mt.SDESimulation(dict(model=mt.gbm(RATE, SIGMA, 1.0), scheme="milstein",
+                                 payoff=sde.european_call(strike, disc)))
+    mc_u = mt.UnbiasedMLMC(
+        mt.sde_unbiased_level_fn(usim, n0=8, refine=4), mt.GeometricLevels(0.125),
+        estimator="coupled", seed=11,
+        chunk_size=lambda lv: max(u["chunk"] >> (2 * lv), u["min_chunk"]),
+        cost_fn=lambda lv: 4.0 ** lv, device=dev)
+    mc_u.sample(u["warm"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est = mc_u.run(target_var=u["target"], n_init=u["n_init"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bs = mt.black_scholes_call(1.0, strike, RATE, SIGMA, 1.0)
+    se = float(np.sqrt(est["var"]))
+    _require(est["target_met"] and abs(est["mean"] - bs) <= 6 * se,
+             "Rhee-Glynn call %.6g vs Black-Scholes %.6g: > 6 se %.3g (target met: %s)"
+             % (est["mean"], bs, se, est["target_met"]))
+    out["unbiased"] = dict(wall_s=wall, draws=int(est["n_draws"]),
+                           draws_per_s=est["n_draws"] / wall, price=est["mean"],
+                           black_scholes=bs, se=se, deepest_level=int(max(est["levels"])),
+                           n_per_level=est["n_samples"].tolist(), target=u["target"])
+    print("Rhee-Glynn coupled-sum call (n0=8, refine=4, r=1/8) to %g: %.3f s, %d draws "
+          "(%.4g draws/s), %.6g vs Black-Scholes %.6g (se %.3g); deepest level %d "
+          "(%d fine steps); samples per level %s"
+          % (u["target"], wall, est["n_draws"], est["n_draws"] / wall, est["mean"], bs, se,
+             max(est["levels"]), 8 * 4 ** int(max(est["levels"])),
+             est["n_samples"].tolist()))
+
+
+def _sde_stored_run(torch, dev, mt, out):
+    """Sampler -> DeviceBatchPool -> DeviceMemory for the GBM path
+    functionals, one allocation round, the call in the Quantity algebra,
+    Legendre(10) moments of the terminal value by kernels C and D."""
+    from mlmc_tpu_torch.quantity.quantity_estimate import estimate_mean
+
+    P = SDE_QMC
+    sim = mt.SDESimulation(dict(model=mt.gbm(RATE, SIGMA, 1.0), scheme="milstein",
+                                qoi="functionals"))
+    storage = mt.DeviceMemory(device=dev)
+    pool = mt.DeviceBatchPool(seed=SEED, device_results=True, max_batch=1 << 20,
+                              min_bucket=1 << 14, device=dev)
+    sampler = mt.Sampler(storage, pool, sim, [[h] for h in P["stored_levels"]])
+    sampler.set_initial_n_samples(P["stored_n"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sampler.schedule_samples()
+    sampler.ask_sampling_pool_for_samples()
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    _require(storage.get_n_collected() == P["stored_n"],
+             "stored SDE run: %s collected" % storage.get_n_collected())
+    root = mt.make_root_quantity(storage, sim.result_format())
+    terminal = root["terminal"][1.0]["-"][0]
+    domain = mt.estimate_domain(terminal, storage, quantile=0.001)
+    mfn = mt.Legendre(10, domain)
+    est = mt.Estimate(terminal, storage, mfn)
+    raw, ns = est.estimate_diff_vars_fast()                        # kernel C
+    variances, n_ops = est.estimate_diff_vars_regression(
+        sampler._n_scheduled_samples, raw_vars=raw)
+    n_est = mt.estimate_n_samples_for_target_variance(
+        P["stored_target"], variances, n_ops, n_levels=sampler.n_levels)
+    t0 = time.perf_counter()
+    sampler.process_adding_samples(n_est, 0, 1.0)      # the whole gap at once
+    sampler.ask_sampling_pool_for_samples()
+    torch.cuda.synchronize()
+    alloc_s = time.perf_counter() - t0
+    disc = float(np.exp(-RATE))
+    call = disc * np.maximum(terminal - 1.0, 0.0)
+    qm = estimate_mean(call)
+    price, pvar = float(np.asarray(qm.mean).ravel()[0]), float(np.asarray(qm.var).ravel()[0])
+    bs = mt.black_scholes_call(1.0, 1.0, RATE, SIGMA, 1.0)
+    _require(abs(price - bs) <= 6 * np.sqrt(pvar) + 2e-3,
+             "stored SDE call %.6g vs Black-Scholes %.6g: > 6 sigma + 2e-3 (var %.3g)"
+             % (price, bs, pvar))
+    fast_mean, fast_var = est.estimate_moments_fast()              # kernel C
+    ext_mean, ext_var = est.estimate_moments_extended()            # kernel D
+    _require(fast_mean[0] == 1.0 and ext_mean[0] == 1.0 and np.all(np.isfinite(ext_var)),
+             "stored SDE moments: mean[0] %r / %r" % (fast_mean[0], ext_mean[0]))
+    out["stored"] = dict(n_initial=P["stored_n"], n_estimated=np.asarray(n_est).tolist(),
+                         n_collected=storage.get_n_collected(), sample_s=sample_s,
+                         allocation_s=alloc_s, price=price, price_var=pvar,
+                         black_scholes=bs, domain=list(domain),
+                         moments_fast_vs_f64=float(np.max(np.abs(fast_mean - ext_mean))),
+                         pool_dispatches=pool.n_dispatches)
+    print("stored SDE run (GBM Milstein functionals, levels 1/8..1/512): %s samples in "
+          "%.3f s, allocation for %g: %s, %s collected after it (%.3f s); the call in the "
+          "Quantity algebra %.6g vs Black-Scholes %.6g (sigma %.3g); Legendre(10) on "
+          "(%.3f, %.3f): fast vs f64 tier max |mean diff| %.3g"
+          % (P["stored_n"], sample_s, P["stored_target"], np.asarray(n_est).tolist(),
+             storage.get_n_collected(), alloc_s, price, bs, np.sqrt(pvar), domain[0],
+             domain[1], out["stored"]["moments_fast_vs_f64"]))
+    return est
+
+
+def sde_qmc_path(torch, dev):
+    """QMC point sets, MLQMC, the SDE family's batches and prices, the
+    MLQMC and unbiased SDE calls, and the stored SDE run (kernels C and D);
+    returns the path's launch counts and the kernels' errors at its
+    streams."""
+    import mlmc_tpu_torch as mt
+    from mlmc_tpu_torch.ops import cuda_extended as cx
+    from mlmc_tpu_torch.ops import cuda_kernels as ck
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ck.reset_launch_counts()
+    cx.reset_launch_counts()
+    out = {"path": "sde_qmc"}
+    with Phase(torch, "sde_qmc path") as whole:
+        with Phase(torch, "sde_qmc: Sobol' bits and the CBC lattice") as ph:
+            _sde_point_sets(torch, dev, mt, out)
+        out["point_sets_s"] = ph.seconds
+        with Phase(torch, "sde_qmc: MLQMC synthetic (Sobol', lattice, mesh) and shooting") as ph:
+            _sde_mlqmc(torch, dev, mt, out)
+        out["mlqmc_s"] = ph.seconds
+        with Phase(torch, "sde_qmc: SDE, Heston, Merton, VG, rBergomi batches") as ph:
+            _sde_batches(torch, dev, mt, out)
+        out["batches_s"] = ph.seconds
+        with Phase(torch, "sde_qmc: MLQMC SDE call and the Rhee-Glynn call") as ph:
+            _sde_qmc_and_unbiased(torch, dev, mt, out)
+        out["qmc_unbiased_s"] = ph.seconds
+        with Phase(torch, "sde_qmc: the stored SDE run (kernels C and D)") as ph:
+            est = _sde_stored_run(torch, dev, mt, out)
+        out["stored_s"] = ph.seconds
+        counts = {**ck.launch_counts(), **cx.launch_counts()}
+    out.update(seconds=whole.seconds, launches=counts,
+               peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    print("sde_qmc path: %.2f s; kernel launches %s; peak device memory %.3f GB"
+          % (whole.seconds, counts, out["peak_memory_gb"]))
+    for name in ("samples_mlmc", "samples_ext"):
+        _require(counts[name] > 0, "kernel %s was not launched by the sde_qmc path" % name)
+    with Phase(torch, "kernels C/D vs plain at the stored SDE run's streams"):
+        errs = _streams_vs_plain(torch, dev, est, "the stored SDE streams")
+    print(json.dumps(out))
+    return counts, {"samples_mlmc": errs[0], "samples_ext": errs[1]}
+
+
 def _cdf_run(mt, pair, mesh, dev):
     m = mt.MultilevelCDF(pair, 3, np.linspace(-3.0, 3.0, 41), 0.1, seed=13,
                          chunk_size=1 << 10, mesh=mesh, device=dev)
@@ -2256,7 +2783,8 @@ def main():
     later = {"simulations": simulations_path(torch, dev),
              "persisted": persisted_path(torch, dev),
              "sharded": sharded_path(torch, dev),
-             "darcy3d": darcy3d_path(torch, dev)}
+             "darcy3d": darcy3d_path(torch, dev),
+             "sde_qmc": sde_qmc_path(torch, dev)}
     kernels = []
     for path, of_path in own.items():
         for k in of_path:  # launches of every path; errors at every path's streams

@@ -13,7 +13,11 @@ devices and processes. The 3-D and fractured Darcy simulations
 simulations (``FlowSim``, ``sim/external``) and the reference library's
 tools (``tool/process_base``, ``tool/validation``, ``tool/gmsh_io``, the
 legacy maxent ``tool/distribution``, ``plot/``) sit under their module
-paths.
+paths. Quasi-Monte Carlo (``MLQMC`` over Owen-scrambled Sobol' points or
+extensible rank-1 lattices, ``lattice_estimate``) and the SDE path family
+(``SDESimulation``, the Heston system, Merton jumps, variance gamma,
+rBergomi, the unbiased SDE ladder ``sde_unbiased_level_fn``) run as
+tensor code and feed the same stored-sample path.
 
 Module paths and public names mirror ``mlmc_tpu``: the counterpart of
 ``mlmc_tpu/X.py`` is ``mlmc_tpu_torch/X.py``. Importing the package has no
@@ -100,9 +104,26 @@ from mlmc_tpu_torch.quantity.quantity_types import (
 from mlmc_tpu_torch.cdf_estimate import MultilevelCDF, simulation_pair_fn
 from mlmc_tpu_torch.cmlmc import cmlmc
 from mlmc_tpu_torch.ml2r import ml2r, ml2r_weights
-from mlmc_tpu_torch.unbiased import UnbiasedMLMC, GeometricLevels
+from mlmc_tpu_torch.unbiased import (UnbiasedMLMC, GeometricLevels,
+                                     sde_unbiased_level_fn)
+from mlmc_tpu_torch.sim.sde import (
+    SDESimulation, SDEModel, gbm, ornstein_uhlenbeck, cir,
+    black_scholes_call, sde_qmc_level_fns, gbm_call_shift)
+from mlmc_tpu_torch.sim.jumps import (JumpDiffusion, JumpDiffusionSimulation,
+                                      merton, merton_call_price)
+from mlmc_tpu_torch.sim.rough import (RBergomi, rbergomi, RBergomiSimulation,
+                                      coupled_rbergomi_paths, rl_fbm_cov)
+from mlmc_tpu_torch.sim.levy import (VarianceGamma, variance_gamma,
+                                     VarianceGammaSimulation, vg_call_price)
+from mlmc_tpu_torch.tool.fourier_pricing import (cos_price, cf_gbm, cf_merton,
+                                                 cf_vg, cf_heston)
+from mlmc_tpu_torch.qmc import (
+    MLQMC, synth_qmc_level_fns, shooting_qmc_level_fns,
+    darcy_qmc_level_fns, qmc_level_fns_from_normals,
+    moments_qmc_level_fns)
+from mlmc_tpu_torch.ops.lattice import lattice_estimate, cbc_vector
 from mlmc_tpu_torch.convert import (
     accumulators_from_jax, field_from_jax, level_config_from_jax,
-    moments_from_jax, storage_from_jax)
+    mlqmc_from_jax, moments_from_jax, storage_from_jax)
 
 __version__ = "0.1.0"

@@ -161,3 +161,41 @@ def field_from_jax(field, device=None, dtype=torch.float64):
         out._sqrt_ev = np.asarray(field._sqrt_ev, dtype=np.float64)
         out._n_approx_terms = int(field._n_approx_terms)
     return out
+
+
+def mlqmc_from_jax(ml_jax, level_fns, device=None):
+    """An ``mlmc_tpu`` ``MLQMC`` as this package's, over this package's
+    ``level_fns``: the same dims, randomizations, chunk, dtype, QoI width,
+    point set and fixed costs, and the JAX object's randomization carried
+    across as numpy (the Owen scramble words, or the lattice shifts and
+    CBC vectors), with each level's points, sums and chunk so far. The two
+    objects then evaluate the same points.
+
+    :param device: where the points are made (None: the current CUDA device)
+    """
+    from mlmc_tpu_torch.qmc import MLQMC
+
+    dtype = torch.float64 if np.dtype(ml_jax._dtype) == np.float64 else torch.float32
+    lattice = ml_jax._point_set == "lattice"
+    kw = dict(lattice_n_max=ml_jax._lat_n_max,
+              lattice_tent=ml_jax._lat_tent) if lattice else {}
+    ml = MLQMC(level_fns, list(ml_jax._dims), n_randomizations=ml_jax._R,
+               cost_per_sample=ml_jax._fixed_cost, chunk_size=ml_jax._chunk,
+               dtype=dtype, qoi_dim=ml_jax._qoi_dim,
+               point_set=ml_jax._point_set, device=device, **kw)
+    home = ml._device
+    if lattice:
+        ml._zs = {int(d): np.asarray(z, np.int64) for d, z in ml_jax._zs.items()}
+        ml._seeds = [torch.tensor(np.asarray(s, np.float64), device=home).to(dtype)
+                     for s in ml_jax._seeds]
+    else:
+        ml._seeds = [torch.tensor(np.asarray(s, np.int64), device=home)
+                     for s in ml_jax._seeds]
+    for level, (src, dst) in enumerate(zip(ml_jax._levels, ml._levels)):
+        dst.n = int(src.n)
+        dst.sums = np.asarray(src.sums, np.float64).copy()
+        dst.sums_sq = np.asarray(src.sums_sq, np.float64).copy()
+        dst.elapsed = float(src.elapsed)
+        if level in ml_jax._eval_cache:
+            ml._chunks[level] = int(ml_jax._eval_cache[level][1])
+    return ml

@@ -66,16 +66,18 @@ def _per_sample(blocks, convert, indices, n, dtype):
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
-def keyed_words(seed, level_id, indices, attempts, n_calls):
+def keyed_words(seed, level_id, indices, attempts, n_calls, first_call=0):
     """The 4 * n_calls Philox words of each sample.
 
     :param indices: int64 tensor [B] of sample indices
     :param attempts: int64 tensor [B] of retry counts
+    :param first_call: as in ``keyed_uniforms``
     :return: int64 tensor [B, 4 * n_calls] of uint32 words on the indices'
         device
     """
-    return _per_sample(_word_blocks(seed, level_id, indices, attempts, n_calls),
-                       lambda w: w, indices, 4 * int(n_calls), torch.int64)
+    return _per_sample(
+        _word_blocks(seed, level_id, indices, attempts, n_calls, first_call),
+        lambda w: w, indices, 4 * int(n_calls), torch.int64)
 
 
 def _unit(bits):

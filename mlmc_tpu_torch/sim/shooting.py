@@ -38,7 +38,7 @@ from mlmc_tpu_torch.level_simulation import LevelSimulation
 from mlmc_tpu_torch.quantity.quantity_spec import QuantitySpec
 from mlmc_tpu_torch.random.keyed import keyed_uniforms
 from mlmc_tpu_torch.sim.simulation import (Simulation, config_dtype, generator_on,
-                                           level_cached)
+                                           level_cached, require_full_precision)
 
 
 def _spectral_wave_numbers(model, corr_length, mode_no, seed=0):
@@ -56,13 +56,7 @@ def _spectral_wave_numbers(model, corr_length, mode_no, seed=0):
 def _require_full_precision(x):
     """Raise if the float32 products of ``x`` on a card would run in TF32:
     a rounded product flips out-of-borders masks."""
-    if (x.is_cuda and x.dtype == torch.float32
-            and (torch.backends.cuda.matmul.allow_tf32
-                 or torch.get_float32_matmul_precision() != "highest")):
-        raise RuntimeError(
-            "the shooting simulations need full-precision float32 matmuls: "
-            "leave torch.backends.cuda.matmul.allow_tf32 False and "
-            "float32_matmul_precision 'highest'")
+    require_full_precision(x, "the shooting simulations")
 
 
 class ShootingSimulation1D(Simulation):

@@ -25,6 +25,19 @@ def config_dtype(config):
     return getattr(torch, name)
 
 
+def require_full_precision(x, who):
+    """Raise if float32 products of ``x`` on a card would run in TF32
+    (PyTorch's default leaves it off; this package never turns it on):
+    ``who`` names the computation that needs full float32 products."""
+    if (x.is_cuda and x.dtype == torch.float32
+            and (torch.backends.cuda.matmul.allow_tf32
+                 or torch.get_float32_matmul_precision() != "highest")):
+        raise RuntimeError(
+            "%s need full-precision float32 matmuls: leave "
+            "torch.backends.cuda.matmul.allow_tf32 False and "
+            "float32_matmul_precision 'highest'" % who)
+
+
 def generator_on(device):
     """A fresh generator on ``device``, seeded by the system: what a batch
     draws from when the caller hands it no generator."""

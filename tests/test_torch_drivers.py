@@ -385,3 +385,95 @@ def test_simulation_pair_fn_drives_the_cdf():
 
     with pytest.raises(ValueError, match="batch path"):
         mt.simulation_pair_fn(NoBatch(), [[0.5]])
+
+
+# ---------------------------------------------------------------------- #
+# the unbiased SDE ladder (sde_unbiased_level_fn)
+# ---------------------------------------------------------------------- #
+def _sde_call_sims(strike=1.05):
+    import mlmc_tpu.sim.sde as js
+    from mlmc_tpu_torch.sim import sde as ts
+
+    disc = float(np.exp(-0.05))
+    kw = dict(scheme="milstein", total_time=1.0)
+    return (js.SDESimulation(dict(model=js.gbm(0.05, 0.2, 1.0),
+                                  payoff=js.european_call(strike, disc), **kw)),
+            ts.SDESimulation(dict(model=ts.gbm(0.05, 0.2, 1.0),
+                                  payoff=ts.european_call(strike, disc), **kw)))
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_sde_unbiased_corrections_match_jax(level):
+    """The port's level-l correction (float64 state: 'df64') from the
+    normals that JAX's keys give each coarse step equals JAX's level
+    function (float64 on the CPU) to 1e-12 relative."""
+    import jax
+    import jax.numpy as jnp
+    from mlmc_tpu.unbiased import sde_unbiased_level_fn as jfn
+    from mlmc_tpu_torch.sim import sde as ts
+
+    n0, refine = 2, 2
+    sim_j, sim_t = _sde_call_sims()
+    keys = jax.random.split(jax.random.key(5), 32)
+    want = np.asarray(jfn(sim_j, n0=n0, refine=refine, precision="float")(level, keys))
+    n_f = n0 * refine ** level
+    m = 1 if level == 0 else refine
+    trips = n_f // m
+    z = jax.jit(jax.vmap(lambda k: jnp.concatenate([
+        jax.random.normal(jax.random.fold_in(k, c), (m,)) for c in range(trips)])))(keys)
+    coarse = [0.0] if level == 0 else [1.0 / (n_f // refine)]
+    cfg = dict(sim_t.level_instance([1.0 / n_f], coarse).config_dict, precision="df64")
+    fine, coarse_v, _ = ts.SDESimulation._from_draws(cfg, torch.tensor(np.asarray(z),
+                                                                       dtype=torch.float32))
+    got = (fine[:, 0] - coarse_v[:, 0]).numpy()
+    # the port's float32 draws widened to float64 against JAX's float64 ones
+    z64 = torch.tensor(np.asarray(z, np.float32).astype(np.float64))
+    f64, c64, _ = ts.SDESimulation._from_draws(cfg, z64)
+    assert fine.dtype == torch.float64 and np.array_equal(got, (f64 - c64)[:, 0].numpy())
+    f_ref, c_ref, _ = ts.SDESimulation._from_draws(cfg, torch.tensor(np.asarray(z)))
+    np.testing.assert_allclose((f_ref - c_ref)[:, 0].numpy(), want, rtol=1e-12, atol=1e-15)
+
+
+def test_sde_unbiased_level_fn_is_keyed_and_loud_past_the_stream():
+    """The port's level function draws the keyed normals of its samples;
+    a level past the keyed stream's 2^22 numbers per sample raises."""
+    from mlmc_tpu_torch.random.keyed import SampleKeys, keyed_normals
+    from mlmc_tpu_torch.sim import sde as ts
+
+    _, sim = _sde_call_sims()
+    fn = tunb.sde_unbiased_level_fn(sim, n0=8, refine=4)
+    idx = torch.arange(64)
+    got = fn(2, SampleKeys(3, 2, idx))
+    cfg = dict(sim.level_instance([1 / 128], [1 / 32]).config_dict, precision="df64")
+    fine, coarse, _ = ts.SDESimulation._from_draws(
+        cfg, keyed_normals(3, 2, idx, torch.zeros_like(idx), 128))
+    assert got.dtype == torch.float64 and torch.equal(got, (fine - coarse)[:, 0])
+    with pytest.raises(ValueError, match="Philox calls"):
+        fn(10, SampleKeys(3, 10, idx[:2]))                  # 8 * 4^10 = 2^23 normals
+    with pytest.raises(ValueError, match="payoff"):
+        tunb.sde_unbiased_level_fn(ts.SDESimulation(dict(qoi="functionals")))
+
+
+def test_sde_unbiased_prices_black_scholes():
+    """Rhee-Glynn coupled-sum over the Milstein ladder (n0=4, refine=4,
+    r=1/8) on the CPU: within 6 se of Black-Scholes, no discretization
+    bias; over two shards the same decisions and means."""
+    from mlmc_tpu_torch.sim import sde as ts
+
+    _, sim = _sde_call_sims()
+    bs = ts.black_scholes_call(1.0, 1.05, 0.05, 0.2, 1.0)
+
+    def run(mesh):
+        m = mt.UnbiasedMLMC(tunb.sde_unbiased_level_fn(sim, n0=4, refine=4),
+                            mt.GeometricLevels(0.125), estimator="coupled", seed=11,
+                            chunk_size=lambda lv: max(1024 >> (2 * lv), 64),
+                            cost_fn=lambda lv: 4.0 ** lv, mesh=mesh,
+                            device="cpu" if mesh is None else None)
+        return m.run(target_var=4e-6, n_init=2048)
+
+    one = run(None)
+    assert one["target_met"] and abs(one["mean"] - bs) < 6 * np.sqrt(one["var"])
+    two = run(_cpu_mesh(2))
+    assert two["levels"].tolist() == one["levels"].tolist()
+    assert two["n_samples"].tolist() == one["n_samples"].tolist()
+    np.testing.assert_allclose(two["mean"], one["mean"], rtol=1e-12)

@@ -14,7 +14,9 @@ import torch
 import mlmc_tpu_torch as mt
 from mlmc_tpu_torch.ops import cuda_kernels as ck
 from mlmc_tpu_torch.parallel import multihost
+from mlmc_tpu_torch.ops import sobol
 from mlmc_tpu_torch.random import frac_geom
+from mlmc_tpu_torch.sim import jumps, levy, rough, sde
 from mlmc_tpu_torch.tool.flow_utils import create_corr_field
 
 REPO = Path(__file__).resolve().parent.parent
@@ -85,6 +87,27 @@ for cls in (mt.DiffusionSimulation3D, frac_geom.FracturedDiffusionSimulation,
     level = cls(dict(n_modes=16, n_fractures=4)).level_instance([1 / 4], [1 / 2])
     fine, _, _ = cls.calculate_batch(level.config_dict, gen, 2)
     assert fine.shape == (2, 1) and bool((fine > 0).all())
+from mlmc_tpu_torch import qmc
+from mlmc_tpu_torch.sim import jumps, levy, rough, sde
+fns, dims = qmc.synth_qmc_level_fns([[0.5], [0.25]])
+ml = mt.MLQMC(fns, dims, n_randomizations=4, chunk_size=64, point_set="lattice",
+              lattice_n_max=1 << 10, device="cpu")
+assert ml.run(1e-6, n_init=64)["target_met"]
+lat = mt.lattice_estimate(lambda u: u.sum(dim=1), 3, n=256, n_shifts=4, device="cpu")
+assert abs(lat["mean"] - 1.5) < 3 / 256       # each coordinate: within 1/n of 1/2
+for cls, cfg in ((sde.SDESimulation, dict(scheme="milstein")),
+                 (sde.SDESystemSimulation, dict(model="heston",
+                                                payoff=lambda pf: pf.terminal[:, 0])),
+                 (jumps.JumpDiffusionSimulation, {}), (levy.VarianceGammaSimulation, {}),
+                 (rough.RBergomiSimulation, {})):
+    level = cls(cfg).level_instance([1 / 8], [1 / 4]).config_dict
+    idx = torch.arange(8)
+    fine, _, _ = cls.calculate_keyed_batch(level, 1, 1, idx, torch.zeros_like(idx))
+    assert fine.shape == (8, 1) and bool(torch.isfinite(fine).all())
+ufn = mt.sde_unbiased_level_fn(sde.SDESimulation(dict(scheme="milstein")), n0=4)
+u = mt.UnbiasedMLMC(ufn, mt.GeometricLevels(0.25), chunk_size=64, device="cpu")
+u.sample(128)
+assert np.isfinite(u.estimates()["mean"])
 from mlmc_tpu_torch.tool import process_base, validation, distribution, config
 from mlmc_tpu_torch.plot import plots, violinplot
 import os
@@ -185,6 +208,23 @@ def _shooting_level():
 def _darcy_level():
     sim = mt.DiffusionSimulation(dict(field_method="circulant", corr_length=0.3))
     return sim.level_instance([1 / 8], [1 / 4]).config_dict
+
+
+def _path_level(cls, **config):
+    return lambda: cls(config).level_instance([1 / 8], [1 / 4]).config_dict
+
+
+#: the path simulations: (class, level config, result width)
+_PATH_SIMS = {
+    "sde": (sde.SDESimulation, _path_level(sde.SDESimulation, scheme="milstein"), 1),
+    "sde_system": (sde.SDESystemSimulation, _path_level(
+        sde.SDESystemSimulation, model="heston", qoi="functionals"), 8),
+    "jump_diffusion": (jumps.JumpDiffusionSimulation,
+                       _path_level(jumps.JumpDiffusionSimulation), 1),
+    "variance_gamma": (levy.VarianceGammaSimulation,
+                       _path_level(levy.VarianceGammaSimulation), 1),
+    "rbergomi": (rough.RBergomiSimulation, _path_level(rough.RBergomiSimulation), 1),
+}
 
 
 def _darcy3d_level():
@@ -306,6 +346,15 @@ def _default_device_calls():
         "ml2r": lambda: mt.ml2r(_pair, [0.5, 0.25], target_var=1e-4),
         "unbiased_mlmc": lambda: mt.UnbiasedMLMC(
             lambda level, keys: keys.indices * 0.0, mt.GeometricLevels(0.5)),
+        "mlqmc": lambda: mt.MLQMC(*mt.synth_qmc_level_fns([[0.5]])),
+        "lattice_estimate": lambda: mt.lattice_estimate(lambda u: u[:, 0], 2, n=64),
+        "sobol_bits": lambda: sobol.sobol_bits(sobol.direction_numbers(2), 0, 8),
+        **{"%s_%s" % (name, call): (
+            lambda sim=sim, level=level, call=call: (
+                sim.calculate_batch(level(), None, 4) if call == "calculate_batch"
+                else sim.calculate(level(), 5)))
+           for name, (sim, level, _) in _PATH_SIMS.items()
+           for call in ("calculate_batch", "calculate")},
     }
 
 
@@ -333,7 +382,8 @@ def test_entry_points_default_to_the_card(name):
     (mt.DiffusionSimulation, _darcy_level, 1),
     (mt.DiffusionSimulation3D, _darcy3d_level, 1),
     (frac_geom.FracturedDiffusionSimulation, _fractured_level, 1),
-    (frac_geom.FracturedDiffusionSimulation3D, _fractured3d_level, 1)])
+    (frac_geom.FracturedDiffusionSimulation3D, _fractured3d_level, 1)]
+    + list(_PATH_SIMS.values()))
 def test_simulations_default_to_the_card_on_a_card(sim, level, width):
     """With a card and nothing named, a batch draws from a fresh generator
     on the card and stays there; ``calculate`` computes there and returns
@@ -379,3 +429,25 @@ def test_cuda_request_without_gpu_raises(call):
         else:
             ck.synth_normals(0, 64, device="cuda")
     assert ck.launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_qmc_defaults_to_the_card_on_a_card():
+    """MLQMC and lattice_estimate make their points on the card when no
+    device is named, and equal the CPU's run (float64)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the default device is the card")
+    fns, dims = mt.synth_qmc_level_fns([[0.5], [0.25]])
+    runs = []
+    for device in (None, "cpu"):
+        ml = mt.MLQMC(fns, dims, n_randomizations=4, chunk_size=64, dtype=torch.float64,
+                      cost_per_sample=[1, 2], device=device)
+        runs.append((ml, ml.run(1e-8, n_init=64)))
+    assert runs[0][0]._seeds[0].is_cuda
+    assert runs[0][1]["n_samples"].tolist() == runs[1][1]["n_samples"].tolist()
+    for a, b in zip(runs[0][0]._levels, runs[1][0]._levels):
+        np.testing.assert_allclose(a.sums, b.sums, rtol=1e-12)
+    f = lambda u: torch.prod(1.0 + u * u - u, dim=1)
+    card, host = (mt.lattice_estimate(f, 4, n=256, n_shifts=4, dtype=torch.float64,
+                                      device=d) for d in (None, "cpu"))
+    np.testing.assert_allclose(card["per_shift"], host["per_shift"], rtol=1e-12)
