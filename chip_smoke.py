@@ -125,11 +125,40 @@ Run from the root of a checkout:  python3 chip_smoke.py
       moments of the terminal value by kernels C and D;
    fails unless kernels C and D were launched; holds them against their
    plain versions at the stored run's streams; one JSON line;
-10. holds each kernel's outputs at its path's shapes against its plain
+10. the e2 path, with the counters reset just before it (the sizes of
+   bench_extra.py's bench_spde, bench_reactions, bench_transport,
+   bench_american, bench_heston's Bermudan half, bench_bsde,
+   bench_sensitivity and bench_nested), each phase under torch.profiler
+   for its host wall time, device events and idle share:
+   a. the stochastic heat SPDE telescope (2^13 keyed fields, levels (32,
+      16), (64, 64 | 32, 16), (128, 256 | 64, 64)) within 6 se of the
+      discrete law, with the level variance ratios;
+   b. the dimerization tau-leap telescope (2^15 keyed lanes, 5 levels) within
+      6 sigma + 1.5 of the exact SSA (2^13 lanes, 512 events, no overrun);
+   c. transport at 64^2 + 16^2 (1024 coupled samples), the pool over
+      SampleMesh([dev, dev]) equal to one device bit for bit, its 40 QoI x 2
+      levels through Estimate (kernel C variances, kernel D means), a MUSCL
+      batch of 256 whose QoI are finite;
+   d. the Bermudan put (50 dates, 2 x 2^18 paths) bracketed by the CRR tree
+      and the dual bound of a degree-7 surface; the Heston bracket; the
+      float64 run over SampleMesh([dev, dev]) against one device, at most 16
+      paths flipping their exercise decision;
+   e. the BSDE measure-change driver and the nonlinear anchor against their
+      closed forms;
+   f. Ishigami's Sobol' indices (2^17 x 16) against the closed forms, and an
+      active subspace;
+   g. unbiased nested EVPPI to 1e-7 within 6 se of the closed form;
+   h. the stored SPDE run (Sampler -> DeviceBatchPool -> DeviceMemory), one
+      allocation round, the energy's mean against the discrete law,
+      Legendre(10) moments by kernels C and D;
+   fails unless kernels C and D were launched; holds them against their
+   plain versions at the transport and the stored SPDE streams; one JSON
+   line;
+11. holds each kernel's outputs at its path's shapes against its plain
    version (kernel C at the e2e, config-4 and structured streams; kernel D
    at the e2e and structured streams, also against an exact f64 summation,
    and two launches of it bit for bit against each other);
-11. times each kernel and its plain version at those shapes and computes
+12. times each kernel and its plain version at those shapes and computes
    each kernel's bound from this run's inputs; kernels C and D also at
    their largest launch, the structured tier's 12 x 5 streams.
 
@@ -138,7 +167,7 @@ checkout. The last line is {"ok": true, "device": {...}}; the line before
 it lists the kernels with their launch counts (of all the paths, and by
 path under "launches_by_path"), errors, times and bounds; each
 configuration of the simulations path, and the persisted, sharded,
-darcy3d and sde_qmc paths, print one JSON line of their own.
+darcy3d, sde_qmc and e2 paths, print one JSON line of their own.
 """
 import json
 import os
@@ -788,14 +817,14 @@ def stored_path(torch, dev):
 # ------------------------------------------------------------------------ #
 # the simulations path: BASELINE configs 2, 3 and 5 (kernels C and D)
 # ------------------------------------------------------------------------ #
-def _streams_vs_plain(torch, dev, est, what):
-    """Kernels C and D at an estimate's streams against their plain
-    versions (1e-12 * S_abs); returns the two max errors."""
+def _streams_vs_plain(torch, dev, est, what, components=(0,)):
+    """Kernels C and D at an estimate's streams (of ``components``) against
+    their plain versions (1e-12 * S_abs); returns the two max errors."""
     from mlmc_tpu_torch.ops import cuda_extended as cx
     from mlmc_tpu_torch.ops import cuda_kernels as ck
 
     mfn = est._moments_fn
-    streams = est._packed_streams(mfn, [0])
+    streams = est._packed_streams(mfn, list(components))
     errs = []
     for name, launch, plain_fn, consts in (
             ("C", ck.samples_mlmc_cuda, ck.samples_mlmc_plain,
@@ -2736,6 +2765,573 @@ def sde_qmc_path(torch, dev):
     return counts, {"samples_mlmc": errs[0], "samples_ext": errs[1]}
 
 
+# ------------------------------------------------------------------------ #
+# the e2 path: SPDE, reactions, transport, Longstaff-Schwartz, BSDE,
+# sensitivity, nested expectations, the stored SPDE run (kernels C and D)
+# ------------------------------------------------------------------------ #
+#: bench_extra.py's sizes (bench_spde, bench_reactions, bench_transport,
+#: bench_american, bench_heston's Bermudan half, bench_bsde,
+#: bench_sensitivity, bench_nested)
+E2 = dict(
+    spde=dict(T=0.5, batch=1 << 13,
+              levels=[(32, 16, 0, 0), (64, 64, 32, 16), (128, 256, 64, 64)]),
+    reactions=dict(T=1.0, batch=1 << 15,
+                   levels=[(4, 0), (8, 4), (16, 8), (32, 16), (64, 32)],
+                   ssa_lanes=1 << 13, ssa_events=512),
+    transport=dict(fine=64, coarse=16, batch=1024, pool=[1024, 1024], muscl_batch=256,
+                   muscl_steps_per_cell=160, moments=10),
+    american=dict(rate=0.06, sigma=0.2, n_dates=50, paths=1 << 18, dual=(1 << 14, 64),
+                  heston_dates=16, heston_sub=8, heston_paths=1 << 16,
+                  heston_dual=(1 << 12, 512), max_flips=16),
+    bsde=dict(bs=(50, 1 << 17, 5), nonlinear=(32, 1 << 16, 6)),
+    sensitivity=dict(n=1 << 17, R=16, chunk=1 << 13, subspace_samples=1 << 16),
+    # bench_nested's chunk is 2^12 at every level; the chunk here shrinks
+    # with the level's inner count (the same estimator, fewer launches)
+    nested=dict(target=1e-7, n_init=1 << 16, warm=1 << 14, chunk=1 << 16, min_chunk=64,
+                block=1 << 16),
+    stored=dict(n=[1 << 14, 1 << 12, 1 << 10], target=1e-7, moments=10),
+)
+
+
+def _e2_trace(torch, out, key, what, fn):
+    """Run ``fn`` under torch.profiler (the device alone traced) and record
+    its device events and idle share in ``out[key]``; returns fn's result.
+    Reading a trace costs ~35 us of host time per device event, so a phase
+    of 1e5-1e6 launches traces its main batch, not the whole phase."""
+    from mlmc_tpu_torch.tool.profile_simulations import device_activity
+
+    result, act = device_activity(fn)
+    out.setdefault(key, {}).update(
+        traced=what, traced_wall_s=act["wall_s"], device_events=act["events"],
+        device_busy_ms=act["busy_ms"], device_span_ms=act["span_ms"],
+        device_idle_share=act["idle_share"])
+    return result
+
+
+def _e2_phase(torch, out, key, label, fn, trace_whole=True):
+    """One phase: its host wall time, and (``trace_whole``) its device
+    events and idle share; a phase that does not trace itself whole
+    traces its main batch with ``_e2_trace``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = (_e2_trace(torch, out, key, "the whole phase", fn) if trace_whole
+              else fn())
+    torch.cuda.synchronize()
+    o = out.setdefault(key, {})
+    o["wall_s"] = time.perf_counter() - t0
+    print("phase e2 %s: %.3f s (host clock); %s: %.3f s traced, %d device events, busy "
+          "%.3f ms of a %.3f ms span: idle %.1f%%"
+          % (label, o["wall_s"], o["traced"], o["traced_wall_s"], o["device_events"],
+             o["device_busy_ms"], o["device_span_ms"], 100 * o["device_idle_share"]))
+    return result
+
+
+def _e2_spde(torch, dev, mt, out):
+    """bench_spde: the stochastic heat telescope against the discrete law."""
+    from mlmc_tpu_torch.sim import spde
+
+    P = E2["spde"]
+    T, B = P["T"], P["batch"]
+    sim = mt.SPDESimulation(dict(model=mt.stochastic_heat(1.0, 1.0), total_time=T))
+    idx = torch.arange(B, device=dev)
+    total, var, lvars, secs = 0.0, 0.0, [], []
+    for lev, (Nf, nf, Nc, nc) in enumerate(P["levels"]):
+        coarse = [0, 0] if Nc == 0 else [1.0 / Nc, T / nc]
+        cfg = sim.level_instance([1.0 / Nf, T / nf], coarse).config_dict
+        t0 = time.perf_counter()
+        f, c, failed = mt.SPDESimulation.calculate_keyed_batch(cfg, SEED, lev, idx,
+                                                               torch.zeros_like(idx))
+        d = (f - c)[:, 0].double()
+        total += float(d.mean())
+        var += float(d.var()) / B
+        lvars.append(float(d.var()))
+        secs.append(time.perf_counter() - t0)
+        _require(not bool(failed.any()), "SPDE level %d: failed samples" % lev)
+    se = float(np.sqrt(var))
+    exact = spde.discrete_heat_l2_moment(1.0, 1.0, T, 128, 256)
+    cont = mt.heat_spde_l2_moment(1.0, 1.0, T)
+    ratios = [lvars[i + 1] / lvars[i] for i in range(len(lvars) - 1)]
+    _require(abs(total - exact) <= 6 * se, "SPDE energy %.6g vs the discrete law %.6g: "
+             "> 6 se (%.3g)" % (total, exact, se))
+    out["spde"] = dict(batch=B, energy=total, se=se, discrete_closed_form=exact,
+                       continuum=cont, level_variances=lvars, level_var_ratios=ratios,
+                       level_seconds=secs)
+    print("SPDE stochastic heat, levels %s, %d keyed fields each: E||u(T)||^2 %.6g vs the "
+          "discrete law %.6g (se %.3g, continuum %.6g); level variances %s, ratios %s; "
+          "level seconds %s"
+          % ([(a, b) for a, b, _, _ in P["levels"]], B, total, exact, se, cont,
+             ["%.3g" % v for v in lvars], ["%.3f" % r for r in ratios],
+             ["%.3f" % t for t in secs]))
+
+
+def _e2_reactions(torch, dev, mt, out):
+    """bench_reactions: the dimerization telescope against the exact SSA."""
+    from mlmc_tpu_torch.random.keyed import SampleKeys
+
+    P = E2["reactions"]
+    T, B = P["T"], P["batch"]
+    net = mt.dimerization()
+    sim = mt.ReactionSimulation(dict(network=net, total_time=T))
+    idx = torch.arange(B, device=dev)
+    total, var, lvars, secs = 0.0, 0.0, [], []
+    for lev, (nf, nc) in enumerate(P["levels"]):
+        cfg = sim.level_instance([T / nf], [0 if nc == 0 else T / nc]).config_dict
+        t0 = time.perf_counter()
+        f, c, _ = mt.ReactionSimulation.calculate_keyed_batch(cfg, SEED, lev, idx,
+                                                              torch.zeros_like(idx))
+        d = (f[:, 0] - c[:, 0]).double()
+        total += float(d.mean())
+        var += float(d.var()) / B
+        lvars.append(float(d.var()))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    se = float(np.sqrt(var))
+    n_ssa = P["ssa_lanes"]
+    t0 = time.perf_counter()
+    x, overran = mt.ssa_exact(net, T, SampleKeys(SEED + 1, 0, torch.arange(n_ssa, device=dev)),
+                              P["ssa_events"])
+    ref_x = x[:, 0].double()
+    n_over = int(overran.sum())
+    ssa_s = time.perf_counter() - t0
+    ref, se_ref = float(ref_x.mean()), float(ref_x.std() / np.sqrt(n_ssa))
+    sig = float(np.hypot(se, se_ref))
+    _require(n_over == 0, "exact SSA: %d lanes overran %d events" % (n_over, P["ssa_events"]))
+    _require(abs(total - ref) < 6 * sig + 1.5, "dimerization telescope %.4f vs exact SSA %.4f:"
+             " > 6 sigma + 1.5 (sigma %.3g)" % (total, ref, sig))
+    ratios = [lvars[i + 1] / lvars[i] for i in range(len(lvars) - 1)]
+    out["reactions"] = dict(batch=B, telescoped_mean=total, se=se, ssa_mean=ref,
+                            ssa_se=se_ref, ssa_lanes=n_ssa, ssa_overruns=n_over, ssa_s=ssa_s,
+                            level_var_ratios=ratios, level_seconds=secs,
+                            finest_level_samples_per_s=B / secs[-1])
+    print("dimerization tau-leap, levels %s, %d keyed lanes each: monomers %.4f (se %.3g) vs "
+          "exact SSA %.4f (se %.3g, %d lanes, %d events, %d overran, %.3f s); level variance "
+          "ratios %s; the (64, 32) level %.3f s (%.4g coupled samples/s)"
+          % (P["levels"], B, total, se, ref, se_ref, n_ssa, P["ssa_events"], n_over, ssa_s,
+             ["%.3f" % r for r in ratios], secs[-1], B / secs[-1]))
+
+
+def _e2_transport(torch, dev, mt, out):
+    """bench_transport: a coupled batch, the sharded pool tier, the 40 QoI
+    streams through Estimate (kernels C and D), a MUSCL batch; returns the
+    estimate."""
+    from mlmc_tpu_torch.parallel import SampleMesh
+
+    P = E2["transport"]
+    base = dict(sigma=1.0, corr_length=0.3, field_method="circulant")
+    sim = mt.TransportSimulation(base)
+    levels = [[1.0 / P["coarse"]], [1.0 / P["fine"]]]
+    cfg = sim.level_instance(levels[1], levels[0]).config_dict
+    B = P["batch"]
+    idx = torch.arange(B, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f, c, failed = _e2_trace(
+        torch, out, "transport", "the upwind batch of %d" % B,
+        lambda: mt.TransportSimulation.calculate_keyed_batch(cfg, SEED, 1, idx,
+                                                             torch.zeros_like(idx)))
+    batch_s = out["transport"]["traced_wall_s"]
+    n_failed = int(failed.sum())
+    _require(f.shape == (B, 40) and n_failed < B // 10,
+             "transport batch: shape %s, %d failed" % (tuple(f.shape), n_failed))
+    ok = ~failed
+    _require(bool(torch.isfinite(f[ok]).all() and torch.isfinite(c[ok]).all()),
+             "transport batch: non-finite QoI on a sample that did not fail")
+
+    def pool_run(sharding):
+        storage = mt.DeviceMemory(device=dev)
+        pool = mt.DeviceBatchPool(seed=SEED, sharding=sharding, device_results=True,
+                                  max_batch=1 << 20, device=dev)
+        sampler = mt.Sampler(storage, pool, sim, levels)
+        sampler.set_initial_n_samples(P["pool"])
+        sampler.schedule_samples()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampler.ask_sampling_pool_for_samples()
+        torch.cuda.synchronize()
+        return storage, time.perf_counter() - t0
+
+    one, one_s = pool_run(None)
+    two, two_s = pool_run(SampleMesh([dev, dev]))
+    _require(one.get_n_collected() == two.get_n_collected(),
+             "transport pools collected %s / %s" % (one.get_n_collected(),
+                                                   two.get_n_collected()))
+    for a, b in zip(one.sample_pairs(), two.sample_pairs()):
+        _require(torch.equal(a, b), "transport pool over [dev, dev] differs from one device")
+    root = mt.make_root_quantity(one, sim.result_format())
+    domain = mt.estimate_domain(root, one, quantile=0.001)
+    est = mt.Estimate(root, one, mt.Legendre(P["moments"], domain))
+    raw, ns = est.estimate_diff_vars_fast()                         # kernel C
+    mean, var = est.estimate_moments_extended()                     # kernel D
+    _require(mean.shape == (40, P["moments"]) and np.all(mean[:, 0] == 1.0)
+             and np.all(np.isfinite(var)), "transport moments: shape %s" % (mean.shape,))
+    muscl = mt.TransportSimulation(dict(base, scheme="muscl",
+                                        steps_per_cell=P["muscl_steps_per_cell"]))
+    cfg_m = muscl.level_instance(levels[1], levels[0]).config_dict
+    idx_m = torch.arange(P["muscl_batch"], device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fm, cm, failed_m = mt.TransportSimulation.calculate_keyed_batch(
+        cfg_m, SEED, 1, idx_m, torch.zeros_like(idx_m))
+    torch.cuda.synchronize()
+    muscl_s = time.perf_counter() - t0
+    _require(bool(torch.isfinite(fm).all() and torch.isfinite(cm).all()),
+             "MUSCL batch: %d of %d samples not finite"
+             % (int((~torch.isfinite(fm).all(dim=1)).sum()), P["muscl_batch"]))
+    out["transport"].update(
+        batch=B, batch_s=batch_s, samples_per_s=B / batch_s, failed=n_failed,
+        steps=[cfg["_n_steps_fine"], cfg["_n_steps_coarse"]],
+        pool=P["pool"], collected=one.get_n_collected(), pool_one_device_s=one_s,
+        pool_two_shards_s=two_s, estimate_n_valid=ns.tolist(), domain=list(domain),
+        muscl_batch=P["muscl_batch"], muscl_steps_per_cell=P["muscl_steps_per_cell"],
+        muscl_s=muscl_s)
+    print("transport 64^2 + 16^2 upwind, %d coupled samples (%d + %d steps): %.3f s "
+          "(traced), %.4g samples/s, %d failed; pools %s: one device %.3f s, over [dev, dev] %.3f s, "
+          "payloads equal bit for bit (%s collected); 40 QoI x 2 levels through Estimate "
+          "(C variances, D means), n_valid %s; MUSCL batch of %d at %d steps per cell: "
+          "%.3f s, every QoI finite"
+          % (B, cfg["_n_steps_fine"], cfg["_n_steps_coarse"], batch_s, B / batch_s,
+             n_failed, P["pool"], one_s, two_s, one.get_n_collected(), ns.tolist(),
+             P["muscl_batch"], P["muscl_steps_per_cell"], muscl_s))
+    return est
+
+
+def _e2_american(torch, dev, mt, out):
+    """bench_american and bench_heston's Bermudan half: the bracket
+    lower bound <= tree <= dual upper bound, the Heston bracket, and the
+    mesh run against one device with its flipped paths."""
+    from mlmc_tpu_torch.parallel import SampleMesh
+    from mlmc_tpu_torch.parallel.mesh import single_device_mesh
+    from mlmc_tpu_torch.sim import american as am
+    from mlmc_tpu_torch.sim import sde
+
+    P = E2["american"]
+    r, sig, N, Bp = P["rate"], P["sigma"], P["n_dates"], P["paths"]
+    put = mt.put_payoff(1.0)
+    lo = _e2_trace(torch, out, "american", "the 2 x %d-path price" % Bp,
+                   lambda: mt.lsmc_price(put, 1.0, r, 1.0, N, sigma=sig, degree=3,
+                                         n_paths=Bp, seed=2, device=dev))
+    price_s = out["american"]["traced_wall_s"]
+    surf = mt.lsmc_price(put, 1.0, r, 1.0, N, sigma=sig, degree=7, n_paths=Bp, seed=5,
+                         itm_only=False, device=dev)
+    n_dual, n_inner = P["dual"]
+    dual = mt.lsmc_dual_bound(put, 1.0, r, 1.0, N, surf["coef"], sigma=sig,
+                              n_paths=n_dual, n_inner=n_inner, seed=6, device=dev)
+    tree = mt.bermudan_binomial(1.0, 1.0, r, sig, 1.0, N, n_steps=200 * N)
+    holds = lo["price"] - 4 * lo["price_se"] <= tree <= dual["upper"] + 4 * dual["upper_se"]
+    _require(holds, "Bermudan bracket: %.6g - 4 x %.3g <= tree %.6g <= %.6g + 4 x %.3g fails"
+             % (lo["price"], lo["price_se"], tree, dual["upper"], dual["upper_se"]))
+    # Heston (bench_heston's parameters)
+    hp = dict(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
+    model = sde.heston(mu=0.05, s0=1.0, **hp)
+    hput = lambda s: torch.clamp(1.0 - s[..., 0], min=0.0)
+    hk = dict(model=model, n_sub=P["heston_sub"], degree=3, n_paths=P["heston_paths"],
+              device=dev)
+    t0 = time.perf_counter()
+    h_lo = mt.lsmc_price(hput, 1.0, 0.05, 1.0, P["heston_dates"], seed=41, **hk)
+    h_surf = mt.lsmc_price(hput, 1.0, 0.05, 1.0, P["heston_dates"], itm_only=False,
+                           seed=42, **hk)
+    hb, hi = P["heston_dual"]
+    h_up = mt.lsmc_dual_bound(hput, 1.0, 0.05, 1.0, P["heston_dates"], h_surf["coef"],
+                              model=model, n_sub=P["heston_sub"], n_paths=hb, n_inner=hi,
+                              seed=43, device=dev)
+    heston_s = time.perf_counter() - t0
+    h_width = h_up["upper"] - h_lo["price"]
+    _require(h_lo["price"] - 4 * h_lo["price_se"] <= h_up["upper"] + 4 * h_up["upper_se"],
+             "Heston Bermudan: lower %.6g above upper %.6g" % (h_lo["price"], h_up["upper"]))
+    # the mesh: the one-device paths, the pooled TSQR fit, in float64 (in
+    # float32 the degree-3 fit of the early dates' narrow state clouds moves
+    # its coefficients by ~5% between one QR and the stacked one, and
+    # hundreds of the 2^18 decisions flip)
+    dyn = am._Dynamics(1.0, r, 1.0, N, sig, None, "euler", 1, 3, None, torch.float64,
+                       "pricing")
+    normals = am._keyed_panel_normals(2, dyn, N)
+    one, p_one = am._lsmc(put, dyn, N, Bp, True, normals, single_device_mesh(dev),
+                          keep_paths=True)
+    two, p_two = am._lsmc(put, dyn, N, Bp, True, normals, SampleMesh([dev, dev]),
+                          keep_paths=True)
+    flip_eval = p_one["stop"] != p_two["stop"]
+    flip_fit = p_one["stop_insample"] != p_two["stop_insample"]
+    flipped = int(flip_eval.sum()) + int(flip_fit.sum())
+    slack = float((p_one["value"] - p_two["value"]).abs()[flip_eval].sum()) / Bp
+    dprice = abs(one["price"] - two["price"])
+    coef_rel = float(np.max(np.abs(one["coef"] - two["coef"])) / np.max(np.abs(one["coef"])))
+    cont_rel = _e2_continuation_gap(torch, dyn, one["coef"], two["coef"], p_one, N, dev)
+    _require(flipped <= P["max_flips"], "mesh LSMC: %d of %d paths flipped (at most %d)"
+             % (flipped, Bp, P["max_flips"]))
+    _require(dprice <= slack + 1e-12 * abs(one["price"]),
+             "mesh LSMC price %.15g vs one device %.15g: more than the flipped paths' %.3g"
+             % (two["price"], one["price"], slack))
+    # a fit-pass flip moves the earlier dates' fits by O(payoff / B)
+    tol = 1e-9 if not bool(flip_fit.any()) else 1e-4
+    _require(coef_rel <= tol and cont_rel <= tol,
+             "mesh LSMC coefficients / continuation values differ by %.3g / %.3g relative "
+             "(tol %g)" % (coef_rel, cont_rel, tol))
+    out["american"].update(
+        price=lo["price"], price_se=lo["price_se"], price_insample=lo["price_insample"],
+        binomial=tree, dual_upper=dual["upper"], dual_upper_se=dual["upper_se"],
+        bracket_width=dual["upper"] - lo["price"], exercise_frac=lo["exercise_frac"],
+        price_s=price_s, paths_per_s=2 * Bp / price_s, dual_s=dual["wall_s"],
+        heston=[h_lo["price"], h_up["upper"]], heston_width=h_width,
+        heston_width_pct=100 * h_width / h_lo["price"], heston_s=heston_s,
+        mesh_flipped_paths=flipped, mesh_price_diff=dprice, mesh_flip_slack=slack,
+        mesh_coef_rel=coef_rel, mesh_continuation_rel=cont_rel)
+    print("Bermudan put, %d dates, 2 x %d paths: LSMC %.6g (se %.3g, %.3f s traced, %.4g "
+          "paths/s) <= "
+          "tree %.6g <= dual %.6g (se %.3g, %d x %d inner, %.3f s): bracket width %.3g; "
+          "Heston (%d dates, n_sub %d, %d paths, dual %d x %d): [%.5f, %.5f], width %.3g "
+          "(%.2f%%), %.3f s; mesh [dev, dev] vs one device (float64): %d of %d paths "
+          "flipped (fit + evaluation), |price diff| %.3g <= flipped payoffs / B %.3g, "
+          "coefficients %.3g and continuation values %.3g relative"
+          % (N, Bp, lo["price"], lo["price_se"], price_s, 2 * Bp / price_s, tree,
+             dual["upper"], dual["upper_se"], n_dual, n_inner, dual["wall_s"],
+             dual["upper"] - lo["price"], P["heston_dates"], P["heston_sub"],
+             P["heston_paths"], hb, hi, h_lo["price"], h_up["upper"], h_width,
+             100 * h_width / h_lo["price"], heston_s, flipped, Bp, dprice, slack, coef_rel,
+             cont_rel))
+
+
+def _e2_continuation_gap(torch, dyn, coef_a, coef_b, paths, N, dev):
+    """Max relative gap of the two coefficient stacks' continuation values
+    on a fresh set of 2^14 keyed paths, over the dates."""
+    from mlmc_tpu_torch.sim import american as am
+
+    idx = torch.arange(1 << 14, device=dev)
+    z = am._keyed_panel_normals(99, dyn, N)(0, idx)
+    s = dyn.initial(idx.shape[0], dev)
+    gap, scale = 0.0, 0.0
+    for i in range(N - 1):
+        s = dyn.step(s, z[:, i], i)
+        G = dyn.basis(s).double()
+        ca = G @ torch.tensor(coef_a[i], device=dev)
+        cb = G @ torch.tensor(coef_b[i], device=dev)
+        gap = max(gap, float((ca - cb).abs().max()))
+        scale = max(scale, float(ca.abs().max()))
+    return gap / max(scale, 1e-300)
+
+
+def _e2_bsde(torch, dev, mt, out):
+    """bench_bsde: the measure-change driver and the manufactured anchor."""
+    from mlmc_tpu_torch.sim import sde
+
+    P = E2["bsde"]
+    mu, R, SIG, T = 0.15, 0.05, 0.2, 1.0
+    lam = (mu - R) / SIG
+    n, B, deg = P["bs"]
+    bs = mt.black_scholes_call(1.0, 1.0, R, SIG, T)
+    res = mt.solve_bsde(mt.gbm(mu, SIG, 1.0), lambda x: torch.clamp(x - 1.0, min=0.0),
+                        lambda t, x, y, z: -R * y - lam * z, T, n, n_paths=B, degree=deg,
+                        seed=3, device=dev)
+    _require(abs(res["y0"] - bs) < 6 * res["y0_se"] + 1e-3,
+             "BSDE Black-Scholes driver: y0 %.6g vs %.6g (se %.3g)" % (res["y0"], bs,
+                                                                       res["y0_se"]))
+    alpha, c, x0 = 0.4, 0.5, 0.8
+    model = sde.SDEModel(drift=lambda x, t: torch.zeros_like(x),
+                         diffusion=lambda x, t: torch.ones_like(x), s0=x0)
+    u_ex = lambda t, x: torch.exp(alpha * (T - t)) * torch.sin(x)
+    drv = lambda t, x, y, z: (alpha + 0.5) * y + c * (y ** 2 - u_ex(t, x) ** 2)
+    n2, B2, deg2 = P["nonlinear"]
+    res2 = mt.solve_bsde(model, torch.sin, drv, T, n2, n_paths=B2, degree=deg2, scale=1.0,
+                         seed=8, device=dev)
+    y_ref = float(np.exp(alpha * T) * np.sin(x0))
+    _require(abs(res2["y0"] - y_ref) < 6 * res2["y0_se"] + 5e-3,
+             "BSDE nonlinear anchor: y0 %.6g vs %.6g (se %.3g)" % (res2["y0"], y_ref,
+                                                                  res2["y0_se"]))
+    out["bsde"] = dict(bs_y0=res["y0"], bs_closed_form=bs, bs_se=res["y0_se"],
+                       bs_wall_s=res["wall_s"], path_dates_per_s=B * n / res["wall_s"],
+                       nonlinear_y0=res2["y0"], nonlinear_exact=y_ref,
+                       nonlinear_se=res2["y0_se"], nonlinear_wall_s=res2["wall_s"])
+    print("BSDE: Black-Scholes driver (%d dates, %d paths, degree %d) y0 %.6g vs %.6g (se "
+          "%.3g, %.3f s, %.4g path-dates/s); nonlinear anchor (%d dates, %d paths, degree "
+          "%d) y0 %.6g vs %.6g (se %.3g, %.3f s)"
+          % (n, B, deg, res["y0"], bs, res["y0_se"], res["wall_s"], B * n / res["wall_s"],
+             n2, B2, deg2, res2["y0"], y_ref, res2["y0_se"], res2["wall_s"]))
+
+
+def _e2_sensitivity(torch, dev, mt, out):
+    """bench_sensitivity: Ishigami's indices, and an active subspace."""
+    P = E2["sensitivity"]
+    a, b = 7.0, 0.1
+
+    def ishigami(u):
+        x = 2 * np.pi * u - np.pi
+        return (torch.sin(x[:, 0]) + a * torch.sin(x[:, 1]) ** 2
+                + b * x[:, 2] ** 4 * torch.sin(x[:, 0]))
+
+    v1, v2 = 0.5 * (1 + b * np.pi ** 4 / 5) ** 2, a ** 2 / 8
+    v13 = 8 * b ** 2 * np.pi ** 8 / 225
+    v = v1 + v2 + v13
+    s_exact = np.array([v1, v2, 0.0]) / v
+    st_exact = np.array([v1 + v13, v2, v13]) / v
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = mt.sobol_indices(ishigami, 3, n=P["n"], n_randomizations=P["R"], seed=4,
+                           chunk_size=P["chunk"], device=dev)
+    wall = time.perf_counter() - t0
+    err1 = np.abs(res.first_order - s_exact)
+    errt = np.abs(res.total_effect - st_exact)
+    _require(np.all(err1 < 6 * res.first_order_se + 1e-3)
+             and np.all(errt < 6 * res.total_effect_se + 1e-3),
+             "Ishigami indices: first %s (se %s), total %s (se %s)"
+             % (res.first_order, res.first_order_se, res.total_effect, res.total_effect_se))
+    w = torch.tensor([0.48, -0.6, 0.64, 0.0], dtype=torch.float32, device=dev)
+    sub = mt.active_subspace(lambda x: torch.tanh(x @ w), 4,
+                             n_samples=P["subspace_samples"], seed=5, device=dev)
+    align = abs(float(sub["W"][:, 0] @ w.double().cpu().numpy()))
+    _require(align > 1 - 1e-4 and sub["explained"][0] > 1 - 1e-4,
+             "active subspace: |<w1, w>| %.6g, explained %.6g" % (align, sub["explained"][0]))
+    out["sensitivity"] = dict(n=P["n"], R=P["R"], indices_s=wall,
+                              n_evaluations=res.n_evaluations,
+                              model_evals_per_s=res.n_evaluations / wall,
+                              max_abs_err_first_order=float(err1.max()),
+                              max_abs_err_total_effect=float(errt.max()),
+                              max_se=float(max(res.first_order_se.max(),
+                                               res.total_effect_se.max())),
+                              subspace_alignment=align, subspace_wall_s=sub["wall_s"])
+    print("Sobol' indices, Ishigami, n=%d x %d randomizations (%d evaluations): %.3f s, %.4g "
+          "model evaluations/s; max |error| first order %.3g, total effect %.3g (max se "
+          "%.3g); active subspace of a ridge function: |<w1, w>| = %.8f"
+          % (P["n"], P["R"], res.n_evaluations, wall, res.n_evaluations / wall,
+             err1.max(), errt.max(), out["sensitivity"]["max_se"], align))
+
+
+def _e2_nested(torch, dev, mt, out):
+    """bench_nested: unbiased EVPPI of the Gaussian information problem."""
+    from mlmc_tpu_torch import nested
+
+    P = E2["nested"]
+    sigma_y, sigma_x, mu = 1.3, 2.0, 0.2
+    fn = nested.nested_level_fn(nested.gaussian_information_fn(sigma_y, sigma_x, mu),
+                                g=nested.g_max0, n0=4, block=P["block"])
+    mc = mt.UnbiasedMLMC(fn, mt.GeometricLevels(2.0 ** -1.25), estimator="single", seed=7,
+                         chunk_size=lambda lv: max(P["chunk"] >> lv, P["min_chunk"]),
+                         cost_fn=lambda lv: 2.0 ** lv, device=dev)
+    _e2_trace(torch, out, "nested", "the warm-up draw of %d" % P["warm"],
+              lambda: mc.sample(P["warm"]))
+    t0 = time.perf_counter()
+    res = mc.run(target_var=P["target"], n_init=P["n_init"])
+    wall = time.perf_counter() - t0
+    exact = nested.evppi_gaussian_exact(sigma_y, mu)
+    se = float(np.sqrt(res["var"]))
+    _require(res["target_met"] and abs(res["mean"] - exact) < 6 * se,
+             "unbiased EVPPI %.6g vs %.6g (se %.3g, target met %s)"
+             % (res["mean"], exact, se, res["target_met"]))
+    out["nested"].update(value=res["mean"], exact=exact, se=se, run_s=wall,
+                         draws=int(res["n_draws"]), draws_per_s=res["n_draws"] / wall,
+                         levels_explored=len(res["levels"]))
+    print("unbiased EVPPI to %g: %.6g vs %.6g (se %.3g), %d draws in %.3f s (%.4g draws/s), "
+          "levels 0..%d" % (P["target"], res["mean"], exact, se, res["n_draws"], wall,
+                            res["n_draws"] / wall, len(res["levels"]) - 1))
+
+
+def _e2_stored_spde(torch, dev, mt, out):
+    """SPDESimulation (energy QoI) through Sampler -> DeviceBatchPool ->
+    DeviceMemory, one allocation round, the mean in the Quantity algebra,
+    Legendre moments by kernels C and D; returns the estimate."""
+    from mlmc_tpu_torch.quantity.quantity_estimate import estimate_mean
+    from mlmc_tpu_torch.sim import spde
+
+    P, S = E2["stored"], E2["spde"]
+    T = S["T"]
+    sim = mt.SPDESimulation(dict(model=mt.stochastic_heat(1.0, 1.0), total_time=T))
+    levels = [[1.0 / Nf, T / nf] for Nf, nf, _, _ in S["levels"]]
+    storage = mt.DeviceMemory(device=dev)
+    pool = mt.DeviceBatchPool(seed=SEED, device_results=True, max_batch=1 << 14,
+                              device=dev)
+    sampler = mt.Sampler(storage, pool, sim, levels)
+    sampler.set_initial_n_samples(P["n"])
+    t0 = time.perf_counter()
+    sampler.schedule_samples()
+    sampler.ask_sampling_pool_for_samples()
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    root = mt.make_root_quantity(storage, sim.result_format())
+    energy = root["l2sq"][T]["-"][0]
+    domain = mt.estimate_domain(energy, storage, quantile=0.001)
+    est = mt.Estimate(energy, storage, mt.Legendre(P["moments"], domain))
+    raw, ns = est.estimate_diff_vars_fast()                          # kernel C
+    _require(np.all(np.isfinite(raw[:, 1:])), "stored SPDE level variances %s" % raw)
+    # the allocation for the energy's mean: its level variances (fine -
+    # coarse of the stored pairs) and each level's N * n cell-steps as cost
+    # (the log-quadratic regression takes one step per level, an SPDE
+    # level has two, [dx, dt])
+    v_energy = [float((p[0, :, 0] - (p[0, :, 1] if p.shape[2] > 1 else 0)).double().var())
+                for p in storage.sample_pairs()]
+    cost = [float(Nf * nf) for Nf, nf, _, _ in S["levels"]]
+    n_est = mt.estimate_n_samples_for_target_variance(
+        P["target"], np.asarray(v_energy)[:, None], cost, n_levels=sampler.n_levels)
+    t0 = time.perf_counter()
+    sampler.process_adding_samples(n_est, 0, 1.0)
+    sampler.ask_sampling_pool_for_samples()
+    torch.cuda.synchronize()
+    alloc_s = time.perf_counter() - t0
+    qm = estimate_mean(energy)
+    mean = float(np.asarray(qm.mean).ravel()[0])
+    mvar = float(np.asarray(qm.var).ravel()[0])
+    exact = spde.discrete_heat_l2_moment(1.0, 1.0, T, 128, 256)
+    _require(abs(mean - exact) <= 6 * np.sqrt(mvar), "stored SPDE energy %.6g vs the discrete "
+             "law %.6g: > 6 se (%.3g)" % (mean, exact, np.sqrt(mvar)))
+    fast_mean, _ = est.estimate_moments_fast()                       # kernel C
+    ext_mean, ext_var = est.estimate_moments_extended()              # kernel D
+    _require(fast_mean[0] == 1.0 and ext_mean[0] == 1.0 and np.all(np.isfinite(ext_var)),
+             "stored SPDE moments: mean[0] %r / %r" % (fast_mean[0], ext_mean[0]))
+    out["stored_spde"] = dict(n_initial=P["n"], level_variances=v_energy,
+                              n_estimated=np.asarray(n_est).tolist(),
+                              n_collected=storage.get_n_collected(), sample_s=sample_s,
+                              allocation_s=alloc_s, mean=mean, mean_var=mvar,
+                              discrete_closed_form=exact, domain=list(domain),
+                              moments_fast_vs_f64=float(np.max(np.abs(fast_mean - ext_mean))))
+    print("stored SPDE run (energy, levels (32, 16) (64, 64) (128, 256)): %s samples in %.3f "
+          "s, allocation for %g: %s, %s collected after it (%.3f s); the mean in the Quantity "
+          "algebra %.6g vs the discrete law %.6g (se %.3g); Legendre(%d) fast vs f64 tier "
+          "max |mean diff| %.3g"
+          % (P["n"], sample_s, P["target"], np.asarray(n_est).tolist(),
+             storage.get_n_collected(), alloc_s, mean, exact, np.sqrt(mvar), P["moments"],
+             out["stored_spde"]["moments_fast_vs_f64"]))
+    return est
+
+
+def e2_path(torch, dev):
+    """The remaining path simulations and their first users (slice E2),
+    each phase traced for its device events and idle share; kernels C and
+    D at the transport streams and the stored SPDE run; returns the path's
+    launch counts and the kernels' errors at its streams."""
+    import mlmc_tpu_torch as mt
+    from mlmc_tpu_torch.ops import cuda_extended as cx
+    from mlmc_tpu_torch.ops import cuda_kernels as ck
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ck.reset_launch_counts()
+    cx.reset_launch_counts()
+    out = {"path": "e2"}
+    run = lambda key, label, fn, whole=True: _e2_phase(
+        torch, out, key, label, lambda: fn(torch, dev, mt, out), whole)
+    with Phase(torch, "e2 path") as whole:
+        run("spde", "a. SPDE stochastic heat telescope", _e2_spde)
+        run("reactions", "b. dimerization tau-leap and exact SSA", _e2_reactions)
+        est_t = run("transport", "c. transport batch, sharded pool, Estimate, MUSCL",
+                    _e2_transport, False)
+        run("american", "d. Longstaff-Schwartz, duals, Heston, mesh", _e2_american, False)
+        run("bsde", "e. BSDE", _e2_bsde)
+        run("sensitivity", "f. Sobol' indices and active subspace", _e2_sensitivity)
+        run("nested", "g. unbiased nested EVPPI", _e2_nested, False)
+        est_s = run("stored_spde", "h. the stored SPDE run (kernels C and D)",
+                    _e2_stored_spde)
+        counts = {**ck.launch_counts(), **cx.launch_counts()}
+    out.update(seconds=whole.seconds, launches=counts,
+               peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    print("e2 path: %.2f s; kernel launches %s; peak device memory %.3f GB"
+          % (whole.seconds, counts, out["peak_memory_gb"]))
+    for name in ("samples_mlmc", "samples_ext"):
+        _require(counts[name] > 0, "kernel %s was not launched by the e2 path" % name)
+    with Phase(torch, "kernels C/D vs plain at the e2 streams"):
+        errs_t = _streams_vs_plain(torch, dev, est_t, "the transport streams (40 QoI)",
+                                   components=range(40))
+        errs_s = _streams_vs_plain(torch, dev, est_s, "the stored SPDE streams")
+    print(json.dumps(out))
+    return counts, {"samples_mlmc": max(errs_t[0], errs_s[0]),
+                    "samples_ext": max(errs_t[1], errs_s[1])}
+
+
 def _cdf_run(mt, pair, mesh, dev):
     m = mt.MultilevelCDF(pair, 3, np.linspace(-3.0, 3.0, 41), 0.1, seed=13,
                          chunk_size=1 << 10, mesh=mesh, device=dev)
@@ -2784,7 +3380,8 @@ def main():
              "persisted": persisted_path(torch, dev),
              "sharded": sharded_path(torch, dev),
              "darcy3d": darcy3d_path(torch, dev),
-             "sde_qmc": sde_qmc_path(torch, dev)}
+             "sde_qmc": sde_qmc_path(torch, dev),
+             "e2": e2_path(torch, dev)}
     kernels = []
     for path, of_path in own.items():
         for k in of_path:  # launches of every path; errors at every path's streams

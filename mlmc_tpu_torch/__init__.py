@@ -17,7 +17,13 @@ paths. Quasi-Monte Carlo (``MLQMC`` over Owen-scrambled Sobol' points or
 extensible rank-1 lattices, ``lattice_estimate``) and the SDE path family
 (``SDESimulation``, the Heston system, Merton jumps, variance gamma,
 rBergomi, the unbiased SDE ladder ``sde_unbiased_level_fn``) run as
-tensor code and feed the same stored-sample path.
+tensor code and feed the same stored-sample path, and so do the stochastic
+heat / Allen-Cahn SPDEs (``SPDESimulation``), tau-leaped reaction networks
+(``ReactionSimulation``, ``ssa_exact``) and solute transport on the Darcy
+field (``TransportSimulation``). Their first users: Longstaff-Schwartz
+Bermudan pricing with its dual bounds and swing options (``lsmc_price``),
+the BSDE solver (``solve_bsde``), Sobol' sensitivity indices and active
+subspaces (``sobol_indices``), and nested expectations (``nested``).
 
 Module paths and public names mirror ``mlmc_tpu``: the counterpart of
 ``mlmc_tpu/X.py`` is ``mlmc_tpu_torch/X.py``. Importing the package has no
@@ -122,6 +128,22 @@ from mlmc_tpu_torch.qmc import (
     darcy_qmc_level_fns, qmc_level_fns_from_normals,
     moments_qmc_level_fns)
 from mlmc_tpu_torch.ops.lattice import lattice_estimate, cbc_vector
+from mlmc_tpu_torch.sim.transport import TransportSimulation
+from mlmc_tpu_torch.sim.reactions import (ReactionNetwork, ReactionSimulation,
+                                          mass_action, immigration_death,
+                                          dimerization, schlogl, tau_leap,
+                                          coupled_tau_leap, ssa_exact)
+from mlmc_tpu_torch.sim.spde import (SPDE1D, stochastic_heat, allen_cahn,
+                                     coupled_spde_paths, SPDESimulation,
+                                     heat_spde_l2_moment)
+from mlmc_tpu_torch.bsde import solve_bsde
+from mlmc_tpu_torch.sensitivity import (sobol_indices, sobol_indices_mlmc,
+                                        active_subspace)
+from mlmc_tpu_torch.nested import nested_level_fn, evppi_level_fn
+from mlmc_tpu_torch.sim.american import (lsmc_price, lsmc_dual_bound,
+                                         lsmc_dual_bound_ml, lsmc_swing,
+                                         bermudan_binomial, put_payoff,
+                                         call_payoff)
 from mlmc_tpu_torch.convert import (
     accumulators_from_jax, field_from_jax, level_config_from_jax,
     mlqmc_from_jax, moments_from_jax, storage_from_jax)

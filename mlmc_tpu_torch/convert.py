@@ -102,14 +102,18 @@ def _port_spec(q):
 #: per-level arrays of an ``mlmc_tpu`` simulation config: the modes and
 #: eigenvalues its ``level_instance`` drew or built
 _LEVEL_ARRAYS = ("_wave_numbers", "_wave_vectors", "_circ_eig")
+#: per-level counts a ``level_instance`` set (the transport's step budgets)
+_LEVEL_COUNTS = ("_n_steps_fine", "_n_steps_coarse")
 
 
 def level_config_from_jax(config_dict, device=None, dtype=None):
-    """An ``mlmc_tpu`` ``LevelSimulation.config_dict`` (of a shooting or
-    diffusion level) as this package's level config, so that both packages
-    simulate the same field modes: ``_wave_numbers``, ``_wave_vectors`` and
-    ``_circ_eig`` become float64 tensors on ``device``, the result format
-    this package's ``QuantitySpec``; every other entry is copied.
+    """An ``mlmc_tpu`` ``LevelSimulation.config_dict`` (of a shooting,
+    diffusion or transport level) as this package's level config, so that
+    both packages simulate the same field modes: ``_wave_numbers``,
+    ``_wave_vectors`` and ``_circ_eig`` become float64 tensors on
+    ``device``, the step budgets ``_n_steps_fine`` / ``_n_steps_coarse``
+    ints, the result format this package's ``QuantitySpec``; every other
+    entry without a leading underscore is copied.
 
     :param device: None = the current CUDA device
     :param dtype: sets ``config["dtype"]`` ('float32' | 'float64') when given
@@ -122,6 +126,8 @@ def level_config_from_jax(config_dict, device=None, dtype=None):
         if key in _LEVEL_ARRAYS:
             config[key] = torch.tensor(np.asarray(value, dtype=np.float64),
                                        device=device)
+        elif key in _LEVEL_COUNTS:
+            config[key] = int(value)
         elif key == "res_format":
             config[key] = [_port_spec(q) for q in value]
         elif not str(key).startswith("_"):

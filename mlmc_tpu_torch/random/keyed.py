@@ -124,6 +124,31 @@ def keyed_normals(seed, level_id, indices, attempts, n, dtype=torch.float32,
         _normal_pairs, indices, n, dtype)
 
 
+def keyed_call_normals(seed, level_id, indices, calls, dtype=torch.float32):
+    """One normal per listed Philox call of each sample (first attempt):
+    the first normal of call ``calls[j]`` (the cosine branch of its first
+    word pair, as ``keyed_normals`` makes it).
+
+    Calls run up to 2^32 - 1: a call at or past 2^20 takes the counter of
+    a later attempt's call, so such long streams belong to samples that
+    are never retried (the drivers' ``SampleKeys``, e.g. the inner draws of
+    a nested expectation).
+
+    :param calls: int64 tensor [n] of call numbers in [0, 2^32)
+    :return: tensor [B, n]
+    """
+    calls = calls.to(device=indices.device, dtype=torch.int64)
+    if calls.numel() and not (int(calls.min()) >= 0 and int(calls.max()) <= _MASK32):
+        raise ValueError("Philox calls are numbered 0 .. 2^32 - 1")
+    c3 = calls[None, :].expand(indices.shape[0], -1)
+    idx = indices[:, None].expand_as(c3)
+    words = philox4x32_10((idx & _MASK32, idx >> 32,
+                           torch.full_like(c3, WIDE | (int(level_id) & (WIDE - 1))), c3),
+                          _key_words(seed))
+    r = _sqrt_f32(-2.0 * torch.log(_unit(words[0]) + (0.5 / (1 << 24))))
+    return (r * torch.cos(_TWO_PI_F32 * _unit(words[1]))).to(dtype)
+
+
 class SampleKeys(NamedTuple):
     """The identity of a chunk of samples (first attempts): the
     counterpart of JAX's keys ``fold_in(fold_in(key(seed), level), i)``.

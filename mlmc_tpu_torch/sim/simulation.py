@@ -7,6 +7,7 @@ A simulation provides per-level instances and two calculate entry points:
 * ``calculate_batch(config, generator, n, device)`` — a whole level batch
   as tensor code on ``device``, drawing from an explicit generator.
 """
+import contextlib
 from abc import ABC, abstractmethod
 from typing import List
 
@@ -36,6 +37,18 @@ def require_full_precision(x, who):
             "%s need full-precision float32 matmuls: leave "
             "torch.backends.cuda.matmul.allow_tf32 False and "
             "float32_matmul_precision 'highest'" % who)
+
+
+@contextlib.contextmanager
+def ieee_float32_matmuls():
+    """Float32 matmuls in full precision inside the block, whatever the
+    process has set (TF32 off; the previous setting restored on exit)."""
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved)
 
 
 def generator_on(device):

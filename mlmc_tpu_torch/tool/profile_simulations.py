@@ -107,6 +107,31 @@ def device_breakdown(label, fn, n_calls, top=6):
                 span_ms=span / n_calls / 1e3, idle_share=1.0 - busy / span)
 
 
+def device_activity(fn):
+    """Run ``fn`` once under ``torch.profiler`` with only the device traced
+    and read the raw device records (kineto's, without building the
+    per-event Python objects, which costs seconds per 1e5 events).
+
+    :return: (fn's result, dict(wall_s: host seconds of the traced call
+        ending in a synchronize, events, busy_ms, span_ms, idle_share))
+    """
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = [(e.start_ns(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
+             if e.device_type() == cuda]
+    if not spans:
+        raise SystemExit("device_activity: the profiler saw no device events")
+    busy = sum(d for _, d in spans)
+    span = max(s + d for s, d in spans) - min(s for s, _ in spans)
+    return result, dict(wall_s=wall, events=len(spans), busy_ms=busy / 1e6,
+                        span_ms=span / 1e6, idle_share=1.0 - busy / max(span, 1))
+
+
 def tracing_cost(label, fn):
     """One warm call of ``fn`` traced with the host's operators and the
     device, then with the device alone: host seconds of the call and of

@@ -16,7 +16,8 @@ from mlmc_tpu_torch.ops import cuda_kernels as ck
 from mlmc_tpu_torch.parallel import multihost
 from mlmc_tpu_torch.ops import sobol
 from mlmc_tpu_torch.random import frac_geom
-from mlmc_tpu_torch.sim import jumps, levy, rough, sde
+from mlmc_tpu_torch.sim import jumps, levy, reactions, rough, sde, spde, transport
+from mlmc_tpu_torch import nested
 from mlmc_tpu_torch.tool.flow_utils import create_corr_field
 
 REPO = Path(__file__).resolve().parent.parent
@@ -107,6 +108,35 @@ for cls, cfg in ((sde.SDESimulation, dict(scheme="milstein")),
 ufn = mt.sde_unbiased_level_fn(sde.SDESimulation(dict(scheme="milstein")), n0=4)
 u = mt.UnbiasedMLMC(ufn, mt.GeometricLevels(0.25), chunk_size=64, device="cpu")
 u.sample(128)
+assert np.isfinite(u.estimates()["mean"])
+from mlmc_tpu_torch.sim import american, reactions, spde, transport
+from mlmc_tpu_torch import bsde, nested, sensitivity
+from mlmc_tpu_torch.random.keyed import SampleKeys
+idx = torch.arange(4)
+for cls, level in ((spde.SPDESimulation, spde.SPDESimulation().level_instance(
+                        [1 / 8, 0.5 / 8], [1 / 4, 0.5 / 4])),
+                   (reactions.ReactionSimulation,
+                    reactions.ReactionSimulation().level_instance([1 / 8], [1 / 4])),
+                   (transport.TransportSimulation, transport.TransportSimulation(dict(
+                        field_method="circulant", corr_length=0.3)).level_instance(
+                        [1 / 8], [1 / 4]))):
+    fine, coarse, failed = cls.calculate_keyed_batch(level.config_dict, 1, 1, idx,
+                                                     torch.zeros_like(idx))
+    assert fine.shape[0] == 4 and bool(torch.isfinite(fine).all()) and not bool(failed.any())
+x, over = reactions.ssa_exact(reactions.dimerization(), 0.01, SampleKeys(1, 0, idx), 16)
+assert x.shape == (4, 2)
+res = american.lsmc_price(american.put_payoff(1.0), 1.0, 0.06, 1.0, 4, sigma=0.2,
+                          n_paths=256, device="cpu")
+assert res["coef"].shape == (3, 4) and np.isfinite(res["price"])
+res = bsde.solve_bsde(sde.gbm(0.05, 0.2, 1.0), lambda x: torch.clamp(x - 1.0, min=0.0),
+                      lambda t, x, y, z: -0.05 * y, 1.0, 4, n_paths=256, device="cpu")
+assert np.isfinite(res["y0"])
+res = sensitivity.sobol_indices(lambda u: u[:, 0] + u[:, 1] ** 2, 2, n=256,
+                                n_randomizations=2, device="cpu")
+assert res.first_order.shape == (2,)
+u = mt.UnbiasedMLMC(nested.nested_level_fn(nested.gaussian_information_fn(), n0=2),
+                    mt.GeometricLevels(0.4), chunk_size=64, device="cpu")
+u.sample(64)
 assert np.isfinite(u.estimates()["mean"])
 from mlmc_tpu_torch.tool import process_base, validation, distribution, config
 from mlmc_tpu_torch.plot import plots, violinplot
@@ -224,6 +254,13 @@ _PATH_SIMS = {
     "variance_gamma": (levy.VarianceGammaSimulation,
                        _path_level(levy.VarianceGammaSimulation), 1),
     "rbergomi": (rough.RBergomiSimulation, _path_level(rough.RBergomiSimulation), 1),
+    "spde": (spde.SPDESimulation, lambda: spde.SPDESimulation().level_instance(
+        [1 / 8, 0.5 / 8], [1 / 4, 0.5 / 4]).config_dict, 1),
+    "reactions": (reactions.ReactionSimulation,
+                  _path_level(reactions.ReactionSimulation, dtype="float64"), 2),
+    "transport": (transport.TransportSimulation, lambda: transport.TransportSimulation(dict(
+        field_method="circulant", corr_length=0.3, dtype="float64")).level_instance(
+        [1 / 8], [1 / 4]).config_dict, 40),
 }
 
 
@@ -349,6 +386,13 @@ def _default_device_calls():
         "mlqmc": lambda: mt.MLQMC(*mt.synth_qmc_level_fns([[0.5]])),
         "lattice_estimate": lambda: mt.lattice_estimate(lambda u: u[:, 0], 2, n=64),
         "sobol_bits": lambda: sobol.sobol_bits(sobol.direction_numbers(2), 0, 8),
+        "lsmc_price": lambda: mt.lsmc_price(mt.put_payoff(1.0), 1.0, 0.06, 1.0, 4,
+                                            sigma=0.2, n_paths=64),
+        "solve_bsde": lambda: mt.solve_bsde(mt.gbm(), lambda x: x, _zero_driver, 1.0, 4,
+                                            n_paths=64),
+        "sobol_indices": lambda: mt.sobol_indices(lambda u: u[:, 0], 2, n=64),
+        "nested_unbiased_mlmc": lambda: mt.UnbiasedMLMC(
+            mt.nested_level_fn(nested.gaussian_information_fn()), mt.GeometricLevels(0.5)),
         **{"%s_%s" % (name, call): (
             lambda sim=sim, level=level, call=call: (
                 sim.calculate_batch(level(), None, 4) if call == "calculate_batch"
@@ -356,6 +400,10 @@ def _default_device_calls():
            for name, (sim, level, _) in _PATH_SIMS.items()
            for call in ("calculate_batch", "calculate")},
     }
+
+
+def _zero_driver(t, x, y, z):
+    return torch.zeros_like(y)
 
 
 def _pair(level, keys):
@@ -451,3 +499,34 @@ def test_qmc_defaults_to_the_card_on_a_card():
     card, host = (mt.lattice_estimate(f, 4, n=256, n_shifts=4, dtype=torch.float64,
                                       device=d) for d in (None, "cpu"))
     np.testing.assert_allclose(card["per_shift"], host["per_shift"], rtol=1e-12)
+
+
+@pytest.mark.cuda
+def test_first_users_default_to_the_card_on_a_card():
+    """lsmc_price, solve_bsde, sobol_indices and a nested level function
+    under UnbiasedMLMC compute on the card when no device is named, and
+    equal the CPU's run: float64 paths, but the keyed normals are computed
+    in float32 (the card's and the CPU's log and cos may differ in the last
+    bit), so to 1e-5 where the draws are normals; the Sobol' design is
+    integer-exact, so to 1e-10 there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the default device is the card")
+    f64 = torch.float64
+    runs = [mt.lsmc_price(mt.put_payoff(1.0), 1.0, 0.06, 1.0, 6, sigma=0.2, n_paths=1024,
+                          dtype=f64, device=d) for d in (None, "cpu")]
+    np.testing.assert_allclose(runs[0]["coef"], runs[1]["coef"], rtol=1e-5, atol=1e-8)
+    assert abs(runs[0]["price"] - runs[1]["price"]) < 1e-3
+    runs = [mt.solve_bsde(mt.gbm(0.05, 0.2, 1.0), lambda x: torch.clamp(x - 1.0, min=0.0),
+                          lambda t, x, y, z: -0.05 * y, 1.0, 8, n_paths=2048, dtype=f64,
+                          device=d) for d in (None, "cpu")]
+    np.testing.assert_allclose(runs[0]["y0"], runs[1]["y0"], rtol=1e-5)
+    runs = [mt.sobol_indices(lambda u: u[:, 0] + u[:, 1] ** 2, 2, n=1024,
+                             n_randomizations=4, dtype=f64, device=d) for d in (None, "cpu")]
+    np.testing.assert_allclose(runs[0].first_order, runs[1].first_order, rtol=1e-10)
+    fn = mt.nested_level_fn(nested.gaussian_information_fn(1.3, 2.0, 0.2), n0=4)
+    runs = []
+    for d in (None, "cpu"):
+        u = mt.UnbiasedMLMC(fn, mt.GeometricLevels(0.4), chunk_size=256, device=d)
+        u.sample(512)
+        runs.append(u.estimates())
+    np.testing.assert_allclose(runs[0]["mean"], runs[1]["mean"], rtol=1e-5)
