@@ -154,11 +154,34 @@ Run from the root of a checkout:  python3 chip_smoke.py
    fails unless kernels C and D were launched; holds them against their
    plain versions at the transport and the stored SPDE streams; one JSON
    line;
-11. holds each kernel's outputs at its path's shapes against its plain
+11. the e3 path, with the counters reset just before it (the sizes of
+   bench_extra.py's bench_mimc, bench_mimc_darcy, bench_mfmc, bench_mlblue,
+   bench_risk, bench_mcmc and bench_oed, cut in depth or batching where
+   E3 says), each phase with its host wall and its main batch's device
+   events and idle share:
+   a. MIMC on the heat equation (total degree 4) to 1e-9, the same run over
+      SampleMesh([dev, dev]) equal bit for bit, the work ratio against
+      diagonal MLMC, the synthetic model within 6 se of its telescope;
+   b. MIMC on the anisotropic Darcy problem, float64, adaptive to 1e-8;
+   c. MFMC on the heat fidelities, the synthetic family against its law;
+   d. MLBLUE on the same family, within 6 se of MFMC;
+   e. GBM VaR/CVaR at 0.95 within 6 se of the lognormal forms, and the
+      CVaR-optimal put hedge no worse than unhedged;
+   f. MLMCMC on the Darcy inverse problem (16/32/64, 256 chains): the
+      posterior-mean misfit below a tenth of the prior's, acceptance rates
+      in (0, 1); the CRN fixed point exactly zero; MLDA and unbiased pairs;
+   g. OED: the spread and cluster designs by nested-MC EIG; a linear design
+      against its closed form by eig_nmc and the unbiased EIG;
+   h. the stored MCMC series in a DeviceMemory: kernel C's variances and
+      kernel D's means, D's level means equal to MLMCMC's to 1e-12;
+   fails unless kernels C and D were launched; holds them against their
+   plain versions at the MCMC streams (D also within its derived bound);
+   one JSON line;
+12. holds each kernel's outputs at its path's shapes against its plain
    version (kernel C at the e2e, config-4 and structured streams; kernel D
    at the e2e and structured streams, also against an exact f64 summation,
    and two launches of it bit for bit against each other);
-12. times each kernel and its plain version at those shapes and computes
+13. times each kernel and its plain version at those shapes and computes
    each kernel's bound from this run's inputs; kernels C and D also at
    their largest launch, the structured tier's 12 x 5 streams.
 
@@ -167,7 +190,7 @@ checkout. The last line is {"ok": true, "device": {...}}; the line before
 it lists the kernels with their launch counts (of all the paths, and by
 path under "launches_by_path"), errors, times and bounds; each
 configuration of the simulations path, and the persisted, sharded,
-darcy3d, sde_qmc and e2 paths, print one JSON line of their own.
+darcy3d, sde_qmc, e2 and e3 paths, print one JSON line of their own.
 """
 import json
 import os
@@ -2819,9 +2842,10 @@ def _e2_phase(torch, out, key, label, fn, trace_whole=True):
     torch.cuda.synchronize()
     o = out.setdefault(key, {})
     o["wall_s"] = time.perf_counter() - t0
-    print("phase e2 %s: %.3f s (host clock); %s: %.3f s traced, %d device events, busy "
+    print("phase %s %s: %.3f s (host clock); %s: %.3f s traced, %d device events, busy "
           "%.3f ms of a %.3f ms span: idle %.1f%%"
-          % (label, o["wall_s"], o["traced"], o["traced_wall_s"], o["device_events"],
+          % (out["path"], label, o["wall_s"], o["traced"], o["traced_wall_s"],
+             o["device_events"],
              o["device_busy_ms"], o["device_span_ms"], 100 * o["device_idle_share"]))
     return result
 
@@ -3332,6 +3356,549 @@ def e2_path(torch, dev):
                     "samples_ext": max(errs_t[1], errs_s[1])}
 
 
+# ------------------------------------------------------------------------ #
+# the e3 path: the drivers beyond MLMC, multilevel MCMC and design
+# ------------------------------------------------------------------------ #
+# the sizes of bench_extra.py's bench_mimc, bench_mimc_darcy, bench_mfmc,
+# bench_mlblue, bench_risk, bench_mcmc and bench_oed
+E3 = dict(
+    heat=dict(sigma=0.5, n0=(4, 4), total_time=0.25),
+    # bench_mimc's chunk is 2^12: each chunk is a few hundred launches per
+    # corner, so the card takes 2^14 (2^15 for the synthetic check)
+    mimc_heat=dict(level=4, chunk=1 << 14, target=1e-9, seed=3, work_keys=4096,
+                   synth_target=1e-6, synth_chunk=1 << 15),
+    # bench_mimc_darcy runs float32 with cg_tol=1e-6 (the TPU has no f64); here
+    # float64 at the value function's default cg_tol=1e-10
+    mimc_darcy=dict(chunk=1 << 9, target=1e-8, bias_tol=3e-4, n_pilot=1 << 9,
+                    max_indices=16, seed=3, work_keys=512),
+    mfmc=dict(fidelities=[(3, 3), (1, 1), (0, 0)], pilot=1 << 13, budget=5e5,
+              chunk=1 << 12, seed=2, synth_costs=[1.0, 0.05, 0.01], synth_budget=1e5),
+    mlblue=dict(budget=5e5, pilot=1 << 13, chunk=1 << 12, seed=4),
+    # bench_risk's chunk is 2^13: the CDF stage draws ~2.5e7 level-0 pairs
+    # (the grid's worst point has F(1 - F) ~ 1/4 against a target of 1e-8),
+    # 3000 chunks of launches; 2^17 here. The hedge takes 100 of the
+    # bench's 250 steps (the ratio settles within ~30)
+    risk=dict(levels=[1 / 4, 1 / 16, 1 / 64, 1 / 256], alpha=0.95, target_se=2e-3,
+              bandwidth=[0.08, 0.04, 0.02, 0.01], chunk=1 << 17, seed=7,
+              hedge_alpha=0.9, n_per_level=[4096, 2048, 1024, 512], n_steps=100,
+              smoothing=0.01, strike=1.0, premium=0.08),
+    # bench_mcmc runs [4000, 600, 300] steps; a step is one batched CG solve
+    # per level (~24 ms, launch-bound), so the card takes [600, 200, 100]
+    # (level 0 cut first); MLDA 50 steps, the unbiased pairs 150
+    mcmc=dict(level_ns=[16, 32, 64], n_modes=64, noise=0.02, chains=256,
+              n_steps=[600, 200, 100], seed=8, data_seed=3, side_chains=64,
+              fixed_point_steps=20, mlda_steps=50, mlda_sub=4, unbiased_k=25,
+              unbiased_m=50),
+    oed=dict(n_modes=8, noise=0.05, n_outer=1024, n_inner=256, chunk=1024, block=64,
+             seed=3, linear_outer=1 << 14, linear_target=1e-4),
+    moments=10,
+)
+
+
+def _mimc_work_ratio(torch, dev, fn, index_set, depth, n_keys):
+    """bench_mimc's optimal-work ratio of MIMC over ``index_set`` against
+    diagonal MLMC to ``depth`` on ``n_keys`` shared samples, with the cost
+    model nx * ny (or nx * nt) = 2^(a0 + a1)."""
+    from mlmc_tpu_torch import mimc
+    from mlmc_tpu_torch.random.keyed import SampleKeys
+
+    keys = SampleKeys(2, 0, torch.arange(n_keys, device=dev))
+    cost = lambda a: 2.0 ** (a[0] + a[1])
+    mimc_sum = sum(np.sqrt(float(sum(s * fn(c, keys) for c, s in
+                                     mimc.mixed_difference_terms(a)).var()) * cost(a))
+                   for a in map(tuple, index_set))
+    mlmc_sum, prev = 0.0, None
+    for lev in range(depth + 1):
+        cur = fn((lev, lev), keys)
+        mlmc_sum += np.sqrt(float((cur if prev is None else cur - prev).var())
+                            * cost((lev, lev)))
+        prev = cur
+    return mimc_sum ** 2 / mlmc_sum ** 2
+
+
+def _e3_mimc_heat(torch, dev, mt, out):
+    """bench_mimc: the heat equation over total_degree_set(2, 4) to 1e-9, the
+    same run over SampleMesh([dev, dev]) bit for bit, the work ratio against
+    diagonal MLMC, and the synthetic model against its exact telescope."""
+    from mlmc_tpu_torch import mimc
+    from mlmc_tpu_torch.parallel import SampleMesh
+
+    P = E3["mimc_heat"]
+    fn, d = mimc.heat_mimc_value_fn(**E3["heat"])
+    iset = mimc.total_degree_set(d, P["level"])
+    # costs by bench_mimc's work model nx * nt (the bench measures them), so
+    # that the one-device and the mesh run allocate alike
+    cost = lambda a: 2.0 ** (a[0] + a[1])
+
+    def run(mesh, trace):
+        m = mimc.MIMC(fn, iset, seed=P["seed"], cost_fn=cost, chunk_size=P["chunk"],
+                      mesh=mesh, device=dev)
+        warm = lambda: [m.extend(a, P["chunk"]) for a in iset]
+        if trace:
+            _e2_trace(torch, out, "mimc_heat", "the first chunk of every index", warm)
+        else:
+            warm()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = m.run(target_var=P["target"])
+        return m, res, time.perf_counter() - t0
+
+    m1, res, wall = run(None, True)
+    m2, res2, wall2 = run(SampleMesh([dev, dev]), False)
+    _require(res["target_met"], "MIMC heat: variance %.3g above %g" % (res["var"], P["target"]))
+    _require(res["n_samples"].tolist() == res2["n_samples"].tolist()
+             and all((m1._states[a].sum, m1._states[a].sum_sq)
+                     == (m2._states[a].sum, m2._states[a].sum_sq) for a in iset)
+             and res["mean"] == res2["mean"],
+             "MIMC heat over [dev, dev] differs from one device")
+    ratio = _mimc_work_ratio(torch, dev, fn, iset, P["level"], P["work_keys"])
+    fs, _ = mimc.synth_mimc_value_fn(mean=1.0)
+    ms = mimc.MIMC(fs, iset, seed=1, chunk_size=P["synth_chunk"], device=dev)
+    rs = ms.run(target_var=P["synth_target"])
+    c, p1, p2, rho = 0.5, 1.0, 1.5, 0.5
+    g = lambda a: 1.0 + c * (2.0 ** (-a[0] * p1) + 2.0 ** (-a[1] * p2)
+                             + rho * 2.0 ** (-a[0] * p1 - a[1] * p2))
+    telescope = sum(s * g(cn) for a in iset for cn, s in mimc.mixed_difference_terms(a))
+    _require(rs["target_met"] and abs(rs["mean"] - telescope) <= 6 * np.sqrt(rs["var"]),
+             "MIMC synthetic %.6g vs its telescope's exact mean %.6g (se %.3g)"
+             % (rs["mean"], telescope, np.sqrt(rs["var"])))
+    out["mimc_heat"].update(
+        run_s=wall, mesh_run_s=wall2, mean=res["mean"], var=res["var"],
+        n_total=int(res["n_samples"].sum()), n_indices=len(iset), rounds=res["rounds"],
+        work_ratio_vs_diag_mlmc=ratio, synth_mean=rs["mean"],
+        synth_se=float(np.sqrt(rs["var"])), synth_telescope=telescope,
+        synth_limit_gap=abs(telescope - 1.0))
+    print("MIMC heat, total degree %d (%d indices) to %g: mean %.8g, var %.3g, %d samples in "
+          "%d rounds, %.3f s (over [dev, dev] %.3f s, sums equal bit for bit); work ratio vs "
+          "diagonal MLMC %.3f; synthetic to %g: %.6g vs its telescope's exact mean %.6g (se "
+          "%.3g; the telescope sits %.3g from the limit 1)"
+          % (P["level"], len(iset), P["target"], res["mean"], res["var"],
+             res["n_samples"].sum(), res["rounds"], wall, wall2, ratio,
+             P["synth_target"], rs["mean"], telescope,
+             np.sqrt(rs["var"]), abs(telescope - 1.0)))
+
+
+def _e3_mimc_darcy(torch, dev, mt, out):
+    """bench_mimc_darcy: anisotropic Darcy MIMC, adaptive index growth, float64."""
+    from mlmc_tpu_torch import mimc
+
+    P = E3["mimc_darcy"]
+    fn, _ = mimc.darcy_mimc_value_fn(sigma=1.0, corr_length=0.3, n0=(4, 4))
+    m = mimc.MIMC(fn, [(0, 0)], seed=P["seed"], chunk_size=P["chunk"], device=dev)
+    _e2_trace(torch, out, "mimc_darcy", "the first pilot chunk at (0, 0)",
+              lambda: m.extend((0, 0), P["n_pilot"]))
+    t0 = time.perf_counter()
+    res = m.run_adaptive(target_var=P["target"], bias_tol=P["bias_tol"],
+                         n_pilot=P["n_pilot"], max_indices=P["max_indices"])
+    wall = time.perf_counter() - t0
+    _require(res["target_met"], "Darcy MIMC: variance %.3g above %g" % (res["var"],
+                                                                        P["target"]))
+    depth = int(max(max(a) for a in res["index_set"]))
+    ratio = _mimc_work_ratio(torch, dev, fn, res["index_set"], depth, P["work_keys"])
+    out["mimc_darcy"].update(
+        run_s=wall, mean=res["mean"], var=res["var"], n_total=int(res["n_samples"].sum()),
+        index_set=[list(a) for a in res["index_set"]], depth=depth,
+        target_met=res["target_met"], bias_converged=res["bias_converged"],
+        bias_est=res["bias_est"], work_ratio_vs_diag_mlmc=ratio)
+    print("MIMC Darcy (float64, cg_tol 1e-10), adaptive to %g: mean %.8g, var %.3g, %d "
+          "samples, %.3f s; target met %s, bias converged %s (frontier bias %.3g vs %g); "
+          "%d indices, depth %d: %s; work ratio vs diagonal MLMC %.3f"
+          % (P["target"], res["mean"], res["var"], res["n_samples"].sum(), wall,
+             res["target_met"], res["bias_converged"], res["bias_est"], P["bias_tol"],
+             len(res["index_set"]), depth, [tuple(a) for a in res["index_set"]], ratio))
+
+
+def _heat_fidelities(mimc):
+    fn, _ = mimc.heat_mimc_value_fn(**E3["heat"])
+    fids = E3["mfmc"]["fidelities"]
+    return ([lambda keys, a=a: fn(a, keys) for a in fids],
+            [2.0 ** (a0 + a1) for a0, a1 in fids])
+
+
+def _e3_mfmc(torch, dev, mt, out):
+    """bench_mfmc: the heat fidelities; the synthetic family against its law."""
+    from mlmc_tpu_torch import mimc, multifidelity
+
+    P = E3["mfmc"]
+    models, costs = _heat_fidelities(mimc)
+    mf = multifidelity.MFMC(models, costs=costs, seed=P["seed"], chunk_size=P["chunk"],
+                            device=dev)
+    st = _e2_trace(torch, out, "mfmc", "the pilot of %d" % P["pilot"],
+                   lambda: mf.pilot(P["pilot"]))
+    t0 = time.perf_counter()
+    res = mf.estimate(budget=P["budget"])
+    wall = time.perf_counter() - t0
+    _require(np.isfinite(res["mean"]) and res["var"] > 0, "MFMC heat: %s" % res)
+    ms = multifidelity.MFMC(multifidelity.synth_fidelity_models(), costs=P["synth_costs"],
+                            seed=5, chunk_size=P["chunk"], device=dev)
+    ss = ms.pilot(P["pilot"])
+    rs = ms.estimate(budget=P["synth_budget"])
+    rhos = (0.95, 0.8)
+    se_rho = [(1 - r * r) / np.sqrt(ss["n_pilot"]) for r in rhos]
+    _require(abs(rs["mean"] - 1.0) <= 6 * np.sqrt(rs["var"])
+             and all(abs(g - r) <= 6 * s for g, r, s in zip(ss["rho"][1:], rhos, se_rho)),
+             "MFMC synthetic: mean %.6g (se %.3g), pilot rho %s vs %s"
+             % (rs["mean"], np.sqrt(rs["var"]), ss["rho"][1:], rhos))
+    out["mfmc"].update(estimate_s=wall, rho=st["rho"].tolist(), subset=list(res["subset"]),
+                       m=res["m"].tolist(), mean=res["mean"], var=res["var"],
+                       speedup_vs_mc=res["speedup"], synth_mean=rs["mean"],
+                       synth_se=float(np.sqrt(rs["var"])), synth_rho=ss["rho"][1:].tolist())
+    print("MFMC heat fidelities %s: pilot rho %s, subset %s, m %s, mean %.8g (var %.3g), "
+          "speedup vs MC %.1f, estimate %.3f s; synthetic: %.6g vs 1 (se %.3g), pilot rho "
+          "%s vs %s" % (P["fidelities"], np.round(st["rho"], 4).tolist(), list(res["subset"]),
+                        res["m"].tolist(), res["mean"], res["var"], res["speedup"], wall,
+                        rs["mean"], np.sqrt(rs["var"]), np.round(ss["rho"][1:], 4).tolist(),
+                        rhos))
+    return res
+
+
+def _e3_mlblue(torch, dev, mt, out, mfmc_res):
+    """bench_mlblue: the heat fidelity groups at the same budget."""
+    from mlmc_tpu_torch import mimc
+
+    P = E3["mlblue"]
+    models, costs = _heat_fidelities(mimc)
+    res = _e2_trace(torch, out, "mlblue", "the whole estimate", lambda: mt.mlblue(
+        models, costs, budget=P["budget"], seed=P["seed"], n_pilot=P["pilot"],
+        chunk_size=P["chunk"], device=dev))
+    gap = abs(res["mean"] - mfmc_res["mean"])
+    _require(res["var"] > 0 and gap <= 6 * np.sqrt(res["var"] + mfmc_res["var"]),
+             "MLBLUE %.8g vs MFMC %.8g: > 6 se apart" % (res["mean"], mfmc_res["mean"]))
+    out["mlblue"].update(mean=res["mean"], var=res["var"], mlmc_var=res["mlmc_var"],
+                         efficiency_vs_mlmc=res["efficiency_vs_mlmc"],
+                         n_per_group=res["n_per_group"].tolist(),
+                         n_evaluations=res["n_evaluations"])
+    print("MLBLUE heat groups, budget %g: mean %.8g (var %.3g; MFMC's %.8g), efficiency vs "
+          "MLMC %.2f, n per group %s, %d evaluations"
+          % (P["budget"], res["mean"], res["var"], mfmc_res["mean"],
+             res["efficiency_vs_mlmc"], res["n_per_group"].tolist(), res["n_evaluations"]))
+
+
+def _lognormal_tail(rate, sigma, alpha):
+    """VaR and CVaR at ``alpha`` of the loss -S_T, S_T lognormal (S_0 = 1, T = 1)."""
+    import scipy.stats as st
+
+    mu_ln = rate - 0.5 * sigma ** 2
+    z = st.norm.ppf(1 - alpha)
+    return (-np.exp(mu_ln + sigma * z),
+            -np.exp(mu_ln + 0.5 * sigma ** 2) * st.norm.cdf(z - sigma) / (1 - alpha))
+
+
+def _e3_risk(torch, dev, mt, out):
+    """bench_risk: VaR/CVaR of the GBM loss at MLMC cost against the lognormal
+    closed forms; the CVaR-optimal put hedge."""
+    from mlmc_tpu_torch import risk
+    from mlmc_tpu_torch.random.keyed import SampleKeys
+    from mlmc_tpu_torch.sim.sde import SDESimulation, gbm, terminal_value
+
+    P = E3["risk"]
+    sim = SDESimulation(dict(model=gbm(RATE, SIGMA, 1.0), payoff=terminal_value()))
+    fwd_pair, L = mt.simulation_pair_fn(sim, [[h] for h in P["levels"]])
+
+    def loss_pair(level, keys):
+        f, c, v = fwd_pair(level, keys)
+        return -f, -c, v
+
+    _e2_trace(torch, out, "risk", "one chunk of the finest level",
+              lambda: fwd_pair(L - 1, SampleKeys(P["seed"], L - 1,
+                                                 torch.arange(P["chunk"], device=dev))))
+    t0 = time.perf_counter()
+    res = risk.cvar_mlmc(loss_pair, L, P["alpha"], target_se=P["target_se"],
+                         bandwidth=P["bandwidth"], kernel_order=4, chunk_size=P["chunk"],
+                         seed=P["seed"], cost_fn=lambda lv: 4.0 ** lv, device=dev)
+    wall = time.perf_counter() - t0
+    var_x, cvar_x = _lognormal_tail(RATE, SIGMA, P["alpha"])
+    _require(abs(res["var"] - var_x) <= 6 * res["var_se"]
+             and abs(res["cvar"] - cvar_x) <= 6 * res["cvar_se"],
+             "VaR %.6g vs %.6g (se %.3g), CVaR %.6g vs %.6g (se %.3g)"
+             % (res["var"], var_x, res["var_se"], res["cvar"], cvar_x, res["cvar_se"]))
+    K, premium = P["strike"], P["premium"]
+
+    def hedged(level, theta, keys):
+        f, c, v = fwd_pair(level, keys)
+        f, c = f.double(), c.double()
+        h = theta[0]
+        return (-(f + h * torch.clamp(K - f, min=0.0)) + premium * h,
+                -(c + h * torch.clamp(K - c, min=0.0)) + premium * h, v)
+
+    t0 = time.perf_counter()
+    opt = risk.optimize_cvar(hedged, np.array([0.0]), alpha=P["hedge_alpha"], n_levels=L,
+                             n_per_level=P["n_per_level"], n_steps=P["n_steps"],
+                             smoothing=P["smoothing"], seed=8, device=dev)
+    opt_s = time.perf_counter() - t0
+    _, unhedged = _lognormal_tail(RATE, SIGMA, P["hedge_alpha"])
+    _require(opt["cvar"] <= unhedged, "hedged CVaR %.6g above the unhedged %.6g"
+             % (opt["cvar"], unhedged))
+    out["risk"].update(cvar_s=wall, var=res["var"], var_exact=var_x, var_se=res["var_se"],
+                       cvar=res["cvar"], cvar_exact=cvar_x, cvar_se=res["cvar_se"],
+                       n_per_level=res["n_per_level"].tolist(), rounds=res["rounds"],
+                       hedge_ratio=float(opt["theta"][0]), hedge_cvar=opt["cvar"],
+                       unhedged_cvar=unhedged, hedge_t=opt["t"], optimize_s=opt_s,
+                       optimize_steps=P["n_steps"])
+    print("GBM loss at %g: VaR %.6g vs %.6g (se %.3g), CVaR %.6g vs %.6g (se %.3g), n per "
+          "level %s, %d rounds, %.3f s; CVaR_%g hedge: ratio %.4f, CVaR %.6g vs unhedged "
+          "%.6g, %d steps in %.3f s"
+          % (P["alpha"], res["var"], var_x, res["var_se"], res["cvar"], cvar_x,
+             res["cvar_se"], res["n_per_level"].tolist(), res["rounds"], wall,
+             P["hedge_alpha"], float(opt["theta"][0]), opt["cvar"], unhedged,
+             P["n_steps"], opt_s))
+
+
+def _f32_qoi(fn):
+    """``fn`` with its QoI rounded to float32 values (kept float64): the
+    packed streams of kernels C and D are float32, so phase h's sums then
+    see the chains' values exactly."""
+    def wrapped(theta):
+        ll, q = fn(theta)
+        return ll, q.float().double()
+    return wrapped
+
+
+def _e3_mcmc(torch, dev, mt, out):
+    """bench_mcmc: multilevel MCMC on the Darcy inverse problem, the CRN fixed
+    point, MLDA at 16/32 and the unbiased pairs at 16; returns MLMCMC's
+    result."""
+    from mlmc_tpu_torch import mcmc
+
+    P = E3["mcmc"]
+    prob = mcmc.make_darcy_inverse(P["level_ns"], n_modes=P["n_modes"], sigma=1.0,
+                                   noise_std=P["noise"])
+    _, _, data = prob["synthetic"](P["data_seed"], device=dev)
+    fns = [_f32_qoi(f) for f in prob["loglik_qoi_fns"](data)]
+    d = prob["d"]
+    ml = mcmc.MLMCMC(fns, d=d)
+    _e2_trace(torch, out, "mcmc", "3 steps of every level (256 chains)",
+              lambda: ml.run(n_steps=[3] * 3, n_chains=P["chains"], burn=0, seed=0,
+                             device=dev))
+    res = ml.run(n_steps=P["n_steps"], n_chains=P["chains"], seed=P["seed"], device=dev)
+    rs = res["results"]
+    solves = sum(r.n_forward if hasattr(r, "n_forward") else r.n_forward_f + r.n_forward_c
+                 for r in rs)
+    th_hat = torch.as_tensor(rs[0].theta.mean(axis=0), device=dev)[None]
+    misfit_fit = -float(fns[-1](th_hat)[0][0])
+    misfit_prior = -float(fns[-1](torch.zeros_like(th_hat))[0][0])
+    _require(misfit_fit < 0.1 * misfit_prior, "posterior-mean misfit %.4g vs the prior's "
+             "%.4g" % (misfit_fit, misfit_prior))
+    _require(all(0.0 < a < 1.0 for a in res["acc_rates"]),
+             "acceptance rates %s" % res["acc_rates"])
+    beta = rs[0].beta
+    fixed = mcmc.run_coupled(fns[0], fns[0], d, P["fixed_point_steps"],
+                             n_chains=P["side_chains"], beta=beta, seed=1, device=dev)
+    _require(np.all(fixed.diff == 0.0) and fixed.glued_rate == 1.0,
+             "CRN fixed point: max |diff| %.3g, glued %.3f"
+             % (np.abs(fixed.diff).max(), fixed.glued_rate))
+    t0 = time.perf_counter()
+    mlda = mcmc.run_mlda(fns[:2], d, P["mlda_steps"], n_chains=P["side_chains"],
+                         subsamples=P["mlda_sub"], beta=beta, seed=2, device=dev)
+    mlda_s = time.perf_counter() - t0
+    _require(0.0 < mlda.acc_rate < 1.0 and np.all(np.isfinite(mlda.mean)),
+             "MLDA: acceptance %.3f, mean %s" % (mlda.acc_rate, mlda.mean))
+    t0 = time.perf_counter()
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        unb = mcmc.run_unbiased(fns[0], d, k=P["unbiased_k"], m=P["unbiased_m"],
+                                n_pairs=P["side_chains"], beta=beta, seed=3, device=dev)
+    unb_s = time.perf_counter() - t0
+    met = unb["tau"][unb["tau"] >= 0]
+    _require(np.all(np.isfinite(unb["H"])), "unbiased MCMC: non-finite H")
+    out["mcmc"].update(
+        wall_s=res["wall_s"], pde_solves=int(solves), solves_per_s=solves / res["wall_s"],
+        flux_mean=float(res["mean"][0]), flux_se=float(res["se"][0]),
+        level_means=[float(m[0]) for m in res["level_means"]],
+        level_ses=[float(s[0]) for s in res["level_ses"]], acc_rates=res["acc_rates"],
+        mismatch_rates=[r.mismatch_rate for r in rs[1:]], ess_level0=rs[0].ess,
+        rhat_level0=rs[0].rhat, beta=beta, misfit_fit_vs_prior=[misfit_fit, misfit_prior],
+        mlda_s=mlda_s, mlda_acc=mlda.acc_rate, mlda_mean=float(mlda.mean[0]),
+        unbiased_s=unb_s, unbiased_mean=float(unb["mean"][0]),
+        unbiased_se=float(unb["se"][0]), unbiased_frac_unmet=unb["frac_unmet"],
+        unbiased_tau_median=float(np.median(met)) if met.size else None,
+        unbiased_warned=bool(caught))
+    print("MLMCMC Darcy 16/32/64, %d chains, steps %s: %.3f s, %d PDE solves (%.4g/s); flux "
+          "%.6g (se %.3g), level means %s, acceptance %s, mismatch %s, level-0 ESS %.1f, "
+          "R-hat %.3f, beta %.4g; misfit at the posterior mean %.4g vs the prior's %.4g; CRN "
+          "fixed point exactly zero over %d steps; MLDA 16/32 (%d chains, %d steps, %d "
+          "sub-steps): acceptance %.3f, flux %.6g, %.3f s; unbiased pairs at 16 (k %d, m %d): "
+          "flux %.6g (se %.3g), %.1f%% unmet, median tau %s, %.3f s"
+          % (P["chains"], P["n_steps"], res["wall_s"], solves, solves / res["wall_s"],
+             res["mean"][0], res["se"][0], [float("%.6g" % m[0]) for m in res["level_means"]],
+             ["%.3f" % a for a in res["acc_rates"]],
+             ["%.4f" % r.mismatch_rate for r in rs[1:]], rs[0].ess, rs[0].rhat, beta,
+             misfit_fit, misfit_prior, P["fixed_point_steps"], P["side_chains"],
+             P["mlda_steps"], P["mlda_sub"], mlda.acc_rate, mlda.mean[0], mlda_s,
+             P["unbiased_k"], P["unbiased_m"], unb["mean"][0], unb["se"][0],
+             100 * unb["frac_unmet"], out["mcmc"]["unbiased_tau_median"], unb_s))
+    return res
+
+
+def _e3_oed(torch, dev, mt, out):
+    """bench_oed: the spread and cluster designs by nested-MC EIG; a linear
+    forward against the closed form by eig_nmc and the unbiased EIG."""
+    from mlmc_tpu_torch import mcmc, oed
+
+    P = E3["oed"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    g = np.linspace(0.2, 0.8, 3)
+    c = np.linspace(0.45, 0.55, 3)
+    designs = {"spread": [[x, y] for x in g for y in g],
+               "cluster": [[x, y] for x in c for y in c]}
+    results = {}
+    for name, pts in designs.items():
+        prob = mcmc.make_darcy_inverse([16], n_modes=P["n_modes"], sigma=1.0,
+                                       obs_points=pts, noise_std=P["noise"])
+        fwd = lambda th, prob=prob: prob["forward"](th, 16)[0]
+        call = lambda: oed.eig_nmc(fwd, P["noise"], prob["d"], n_outer=P["n_outer"],
+                                   n_inner=P["n_inner"], seed=P["seed"],
+                                   chunk_size=P["chunk"], block=P["block"], device=dev)
+        t0 = time.perf_counter()
+        res = (_e2_trace(torch, out, "oed", "the spread design's EIG", call)
+               if name == "spread" else call())
+        results[name] = dict(eig=res["eig"], se=res["se"], pde_solves=res["n_forward"],
+                             wall_s=time.perf_counter() - t0)
+    better = max(results, key=lambda k: results[k]["eig"])
+    sep = abs(results["spread"]["eig"] - results["cluster"]["eig"]) / np.hypot(
+        results["spread"]["se"], results["cluster"]["se"])
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    G = 0.25 * np.random.default_rng(SEED).normal(size=(3, 4))
+    Gt = torch.tensor(G, device=dev)
+    lin = lambda th: th @ Gt.T
+    exact = oed.linear_gaussian_eig(G, 0.5)
+    runs = [oed.eig_nmc(lin, 0.5, 4, n_outer=P["linear_outer"], n_inner=n, seed=5,
+                        chunk_size=P["chunk"], device=dev) for n in (P["n_inner"] // 2,
+                                                                   P["n_inner"])]
+    bias = max(runs[0]["eig"] - runs[1]["eig"], 0.0)
+    t0 = time.perf_counter()
+    unb = oed.expected_information_gain(lin, 0.5, 4, target_var=P["linear_target"], seed=6,
+                                        device=dev)
+    unb_s = time.perf_counter() - t0
+    _require(abs(runs[1]["eig"] - exact) <= 6 * runs[1]["se"] + bias
+             and unb["target_met"] and abs(unb["mean"] - exact) <= 6 * unb["se"],
+             "linear EIG %.6g: nmc %.6g (se %.3g, bias allowance %.3g), unbiased %.6g (se "
+             "%.3g)" % (exact, runs[1]["eig"], runs[1]["se"], bias, unb["mean"], unb["se"]))
+    out["oed"].update(designs=results, preferred=better, separation_sigmas=sep,
+                      peak_memory_gb=peak, linear_exact=exact, linear_nmc=runs[1]["eig"],
+                      linear_nmc_se=runs[1]["se"], linear_nmc_bias=bias,
+                      linear_unbiased=unb["mean"], linear_unbiased_se=unb["se"],
+                      linear_unbiased_s=unb_s, linear_unbiased_levels=len(unb["levels"]))
+    print("OED Darcy 16^2 (%d-d prior), %d outer x %d inner, block %d: spread %.4f (se %.4f, "
+          "%.3f s), cluster %.4f (se %.4f, %.3f s): %s preferred by %.1f sigma; peak device "
+          "memory %.3f GB; linear design: closed form %.6g, nmc %.6g (se %.3g, bias %.3g), "
+          "unbiased %.6g (se %.3g, levels 0..%d, %.3f s)"
+          % (2 * P["n_modes"], P["n_outer"], P["n_inner"], P["block"],
+             results["spread"]["eig"], results["spread"]["se"], results["spread"]["wall_s"],
+             results["cluster"]["eig"], results["cluster"]["se"],
+             results["cluster"]["wall_s"], better, sep, peak, exact, runs[1]["eig"],
+             runs[1]["se"], bias, unb["mean"], unb["se"], len(unb["levels"]) - 1, unb_s))
+
+
+def _e3_stored_mcmc(torch, dev, mt, out, res):
+    """The post-burn MCMC series in a three-level DeviceMemory: Estimate's fast
+    tier (kernel C variances, kernel D means), and kernel D's level sums of
+    phi_1(fine) - phi_1(coarse) against MLMCMC's level means; returns the
+    estimate."""
+    from mlmc_tpu_torch.ops import cuda_kernels as ck
+    from mlmc_tpu_torch.quantity.quantity_spec import QuantitySpec
+    from mlmc_tpu_torch.tags import TagRange
+
+    rs = res["results"]
+    pairs = [(rs[0].qoi.reshape(-1), None)] + [(r.qoi_f.reshape(-1), r.qoi_c.reshape(-1))
+                                              for r in rs[1:]]
+    spec = [QuantitySpec(name="flux", unit="m^3/s", shape=(1,), times=[0],
+                         locations=["outflow"])]
+    storage = mt.DeviceMemory(device=dev)
+    storage.save_global_data(result_format=spec,
+                             level_parameters=[[1.0 / n] for n in E3["mcmc"]["level_ns"]])
+    for lv, (f, c) in enumerate(pairs):
+        f = torch.as_tensor(f, device=dev)[:, None]
+        c = torch.zeros_like(f) if c is None else torch.as_tensor(c, device=dev)[:, None]
+        storage.save_scheduled_samples(lv, TagRange(lv, 0, f.shape[0]))
+        storage.save_samples_bulk(lv, TagRange(lv, 0, f.shape[0]), f, c)
+    values = np.concatenate([np.concatenate([f, c]) if c is not None else f
+                             for f, c in pairs])
+    lo, hi = float(values.min()), float(values.max())
+    domain = (lo - 0.05 * (hi - lo), hi + 0.05 * (hi - lo))
+    root = mt.make_root_quantity(storage, spec)
+    flux = root["flux"][0]["outflow"][0]
+    est = mt.Estimate(flux, storage, mt.Legendre(E3["moments"], domain))
+    raw, ns = est.estimate_diff_vars_fast()                          # kernel C
+    mean, var = est.estimate_moments_extended()                      # kernel D
+    _require(ns.tolist() == [len(f) for f, _ in pairs] and mean[0] == 1.0
+             and np.all(np.isfinite(raw[:, 1:])) and np.all(np.isfinite(var)),
+             "stored MCMC estimate: n %s, mean[0] %r" % (ns.tolist(), mean[0]))
+    scale, shift, offset = ck.transform_constants(domain, f64=True)[:3]
+    levels = est._extended_results(est._moments_fn, [0])[0]           # kernel D
+    got = []
+    for lv, r in enumerate(levels):
+        m1 = float(r.sums[1]) / float(r.n_valid)
+        got.append((m1 - offset) / scale + shift if lv == 0 else m1 / scale)
+    want = [float(m[0]) for m in res["level_means"]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    _require(max(rel) <= 1e-12, "kernel D's level means %s vs MLMCMC's %s (rel %s)"
+             % (got, want, rel))
+    out.setdefault("stored_mcmc", {}).update(n_samples=ns.tolist(), domain=list(domain),
+                              level_means_kernel_d=got, level_means_mlmcmc=want,
+                              level_mean_rel_err=rel, level_diff_vars_iid=raw[:, 1].tolist())
+    print("stored MCMC series (levels %s samples, flux QoI rounded to float32 in the "
+          "chains): kernel C level variances of phi_1 %s and kernel D means; kernel D's "
+          "level means %s vs MLMCMC's %s, rel %s (tol 1e-12). The variances treat the "
+          "series as iid samples: they are no posterior standard error (the chains are "
+          "autocorrelated)"
+          % (ns.tolist(), ["%.3g" % v for v in raw[:, 1]], ["%.10g" % v for v in got],
+             ["%.10g" % v for v in want], ["%.2g" % r for r in rel]))
+    return est
+
+
+def e3_path(torch, dev):
+    """The drivers beyond MLMC (MIMC, MFMC, MLBLUE, risk), multilevel MCMC and
+    design (slice E3), each phase with its wall and its main batch's device
+    events and idle share; kernels C and D on the stored MCMC series; returns
+    the path's launch counts and the kernels' errors at its streams."""
+    import mlmc_tpu_torch as mt
+    from mlmc_tpu_torch.ops import cuda_extended as cx
+    from mlmc_tpu_torch.ops import cuda_kernels as ck
+    from mlmc_tpu_torch.ops.precision import EPS64, extended_bound_constant
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ck.reset_launch_counts()
+    cx.reset_launch_counts()
+    out = {"path": "e3"}
+    run = lambda key, label, fn, *args, whole=False: _e2_phase(
+        torch, out, key, label, lambda: fn(torch, dev, mt, out, *args), whole)
+    with Phase(torch, "e3 path") as whole:
+        run("mimc_heat", "a. MIMC heat, mesh, work ratio, synthetic", _e3_mimc_heat)
+        run("mimc_darcy", "b. MIMC Darcy, adaptive, float64", _e3_mimc_darcy)
+        mf = run("mfmc", "c. MFMC", _e3_mfmc)
+        run("mlblue", "d. MLBLUE", _e3_mlblue, mf)
+        run("risk", "e. VaR/CVaR and the CVaR hedge", _e3_risk)
+        res = run("mcmc", "f. MLMCMC, CRN fixed point, MLDA, unbiased", _e3_mcmc)
+        run("oed", "g. OED", _e3_oed)
+        est = run("stored_mcmc", "h. the stored MCMC series (kernels C and D)",
+                  _e3_stored_mcmc, res, whole=True)
+        counts = {**ck.launch_counts(), **cx.launch_counts()}
+    out.update(seconds=whole.seconds, launches=counts,
+               peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    print("e3 path: %.2f s; kernel launches %s; peak device memory %.3f GB"
+          % (whole.seconds, counts, out["peak_memory_gb"]))
+    for name in ("samples_mlmc", "samples_ext"):
+        _require(counts[name] > 0, "kernel %s was not launched by the e3 path" % name)
+    with Phase(torch, "kernels C/D vs plain at the stored MCMC streams"):
+        errs = _streams_vs_plain(torch, dev, est, "the stored MCMC streams")
+        mfn = est._moments_fn
+        streams = est._packed_streams(mfn, [0])
+        consts = ck.transform_constants(mfn.domain, f64=True)
+        got = cx.samples_ext_cuda(streams, mfn.size, basis="legendre", consts=consts,
+                                  device=dev)
+        plain, s_abs = (cx.samples_ext_plain(streams, mfn.size, basis="legendre",
+                                             consts=consts, absolute=a) for a in (False, True))
+        bound = EPS64 * extended_bound_constant()
+        _, rel = _compare(torch, got, plain, s_abs, "kernel D at the stored MCMC streams",
+                          rtol=bound)
+        print("kernel D at the stored MCMC streams within its derived bound %.3g * S_abs: "
+              "max / S_abs %.3g" % (bound, rel))
+    print(json.dumps(out))
+    return counts, {"samples_mlmc": errs[0], "samples_ext": errs[1]}
+
+
 def _cdf_run(mt, pair, mesh, dev):
     m = mt.MultilevelCDF(pair, 3, np.linspace(-3.0, 3.0, 41), 0.1, seed=13,
                          chunk_size=1 << 10, mesh=mesh, device=dev)
@@ -3381,7 +3948,8 @@ def main():
              "sharded": sharded_path(torch, dev),
              "darcy3d": darcy3d_path(torch, dev),
              "sde_qmc": sde_qmc_path(torch, dev),
-             "e2": e2_path(torch, dev)}
+             "e2": e2_path(torch, dev),
+             "e3": e3_path(torch, dev)}
     kernels = []
     for path, of_path in own.items():
         for k in of_path:  # launches of every path; errors at every path's streams

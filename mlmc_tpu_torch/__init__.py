@@ -23,7 +23,12 @@ heat / Allen-Cahn SPDEs (``SPDESimulation``), tau-leaped reaction networks
 field (``TransportSimulation``). Their first users: Longstaff-Schwartz
 Bermudan pricing with its dual bounds and swing options (``lsmc_price``),
 the BSDE solver (``solve_bsde``), Sobol' sensitivity indices and active
-subspaces (``sobol_indices``), and nested expectations (``nested``).
+subspaces (``sobol_indices``), and nested expectations (``nested``). The
+drivers beyond MLMC: multi-index MC (``MIMC``), multifidelity MC
+(``MFMC``), multilevel BLUEs (``mlblue``), tail risk and optimization
+under uncertainty (``cvar_mlmc``, ``optimize_cvar``), multilevel MCMC on
+batched likelihoods (``MLMCMC``, ``run_pcn``, ``make_darcy_inverse``) and
+expected information gain (``eig_nmc``).
 
 Module paths and public names mirror ``mlmc_tpu``: the counterpart of
 ``mlmc_tpu/X.py`` is ``mlmc_tpu_torch/X.py``. Importing the package has no
@@ -144,6 +149,16 @@ from mlmc_tpu_torch.sim.american import (lsmc_price, lsmc_dual_bound,
                                          lsmc_dual_bound_ml, lsmc_swing,
                                          bermudan_binomial, put_payoff,
                                          call_payoff)
+from mlmc_tpu_torch.mimc import (MIMC, total_degree_set, full_tensor_set,
+                                 heat_mimc_value_fn)
+from mlmc_tpu_torch.multifidelity import MFMC
+from mlmc_tpu_torch.mlblue import mlblue, default_groups
+from mlmc_tpu_torch.mcmc import (MLMCMC, run_pcn, run_coupled, run_mlda,
+                                 run_unbiased, make_darcy_inverse)
+from mlmc_tpu_torch.oed import (eig_nmc, expected_information_gain,
+                                linear_gaussian_eig)
+from mlmc_tpu_torch.risk import (cvar_empirical, cvar_mlmc, mlmc_gradient,
+                                 optimize_expectation, optimize_cvar)
 from mlmc_tpu_torch.convert import (
     accumulators_from_jax, field_from_jax, level_config_from_jax,
     mlqmc_from_jax, moments_from_jax, storage_from_jax)

@@ -11,7 +11,9 @@ bias at O(delta^2) (O(delta^4) with the fourth-order kernel).
 Each extension of a level streams chunks of coupled pairs, forms the
 [C, J] smoothed-indicator block against the grid and reduces it to [J]
 Kahan-compensated sums; invalid pairs (non-finite, or flagged failed)
-are masked and not counted. Quantiles invert the monotone-projected CDF
+are masked and not counted. Over a sample mesh each shard draws its part
+of a chunk and the pairs are gathered in index order before the
+reduction, so the sums equal one device's bit for bit. Quantiles invert the monotone-projected CDF
 on the host, with delta-method standard errors.
 
 Level contract: ``pair_fn(level, keys) -> (fine [C], coarse [C], valid
@@ -27,7 +29,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from mlmc_tpu_torch.parallel.mesh import chunk_indices, single_device_mesh
+from mlmc_tpu_torch.parallel.mesh import chunk_rows, single_device_mesh
 from mlmc_tpu_torch.random.keyed import SampleKeys
 
 __all__ = ["smoothed_indicator", "MultilevelCDF", "simulation_pair_fn"]
@@ -91,9 +93,9 @@ class MultilevelCDF:
     :param chunk_size: samples per loop step
     :param dtype: accumulation dtype
     :param mesh: a ``parallel.SampleMesh``: each chunk's pairs split over
-        the shards (chunk_size must divide by the device count) and the
-        [J] sums summed over the mesh; the samples do not depend on the
-        shard count
+        the shards (chunk_size must divide by the device count) and are
+        gathered in index order before the [J] sums, which equal one
+        device's bit for bit
     :param device: where the chunks run without a mesh; None = the
         current CUDA device
     """
@@ -136,10 +138,13 @@ class MultilevelCDF:
             _LevelState(grid.size) for _ in range(self.n_levels)]
 
     # -------------------------------------------------------------- #
-    def _shard_sums(self, level, shard, device, start, n_chunks):
+    def _sums(self, level, start, n_chunks):
         """Kahan-compensated [J] sums (g, g^2, pdf, pdf^2) and the valid
-        count of one shard's part of chunks [start, start + n_chunks)."""
+        count of chunks [start, start + n_chunks): each shard draws its part
+        of a chunk, the pairs are gathered in index order and reduced on the
+        mesh's first device, so the sums equal one device's bit for bit."""
         dtype = self._dtype
+        device = self._mesh.devices[0]
         x = torch.as_tensor(self.grid, dtype=dtype, device=device)
         delta_f = self._deltas[level]
         delta_c = self._deltas[max(level - 1, 0)]
@@ -153,16 +158,17 @@ class MultilevelCDF:
             p = torch.where(m, _kernel_pdf(s, order) / delta, 0.0)
             return g, p
 
+        def pairs(idx):
+            fine, coarse, valid = self._fn(level, SampleKeys(self._seed, level, idx))
+            return fine.to(dtype), coarse.to(dtype), valid
+
         z = torch.zeros(x.numel(), dtype=dtype, device=device)
         accs, comps = [z] * 4, [z] * 4
         nv = torch.zeros((), dtype=torch.int64, device=device)
         for c in range(start, start + n_chunks):
-            idx = chunk_indices(self._mesh, shard, self._chunk, c, device)
-            fine, coarse, valid = self._fn(level, SampleKeys(self._seed, level, idx))
-            fine = fine.to(dtype)
+            fine, coarse, valid = chunk_rows(self._mesh, self._chunk, c, pairs)
             valid = valid & torch.isfinite(fine)
             if not is_l0:
-                coarse = coarse.to(dtype)
                 valid = valid & torch.isfinite(coarse)
             gf, pf = g_block(fine, valid, delta_f)
             if is_l0:
@@ -188,9 +194,7 @@ class MultilevelCDF:
             return
         start = st.n // self._chunk
         t0 = time.perf_counter()
-        sums = self._mesh.reduce([
-            self._shard_sums(level, s, d, start, n_chunks)
-            for s, d in self._mesh.local_shards()])
+        sums = self._sums(level, start, n_chunks)
         g_sum, g_sq, p_sum, p_sq = (v.cpu().numpy().astype(np.float64)
                                     for v in sums[:4])
         st.elapsed += time.perf_counter() - t0

@@ -3,7 +3,8 @@
 The state of a storage-free MLMC run is its per-level accumulators and its
 moment basis; the state of a stored-sample run is its sample storage.
 A simulation level's state is its config with the field modes drawn for
-it, a random field's its decomposition.
+it, a random field's its decomposition, a MIMC value function's or a
+Darcy inverse problem's its random modes (and observation points).
 These helpers rebuild them from ``mlmc_tpu`` objects by reading their
 fields and public methods, without importing ``jax`` or ``mlmc_tpu``:
 arrays may be numpy arrays or anything ``numpy.asarray`` accepts. A
@@ -205,3 +206,42 @@ def mlqmc_from_jax(ml_jax, level_fns, device=None):
         if level in ml_jax._eval_cache:
             ml._chunks[level] = int(ml_jax._eval_cache[level][1])
     return ml
+
+
+def _closure(fn):
+    """The free variables a function reads (its closure), by name."""
+    import inspect
+
+    return inspect.getclosurevars(fn).nonlocals
+
+
+def mimc_modes_from_jax(value_fn):
+    """The random modes of an ``mlmc_tpu`` MIMC value function as numpy,
+    read from its closure (or from a value function of this package, which
+    holds them as attributes), so that both packages evaluate the same
+    fields: ``heat_mimc_value_fn``'s ``{"k_modes": [M]}`` (drawn from
+    ``jax.random.key(seed)``) or ``darcy_mimc_value_fn``'s
+    ``{"wave_vectors": [M, 2]}`` (``_wave_vectors_2d``). Pass them as the
+    keywords of the same names to this package's value functions."""
+    for name in ("k_modes", "wave_vectors"):
+        if hasattr(value_fn, name):
+            return {name: np.asarray(getattr(value_fn, name), np.float64)}
+    free = _closure(value_fn)
+    if "k_modes" in free:
+        return {"k_modes": np.asarray(free["k_modes"], np.float64)}
+    if "kvec" in free:
+        return {"wave_vectors": np.asarray(free["kvec"], np.float64)}
+    raise TypeError("no MIMC modes in %r" % (value_fn,))
+
+
+def darcy_inverse_from_jax(problem):
+    """The random modes and observation points of an ``mlmc_tpu``
+    ``mcmc.make_darcy_inverse`` problem (or of this package's) as numpy:
+    ``{"wave_vectors": [M, 2], "obs_points": [K, 2]}``, the keywords of
+    this package's ``make_darcy_inverse`` that make it the same problem."""
+    if "wave_vectors" in problem:
+        k_vec = problem["wave_vectors"]
+    else:
+        k_vec = _closure(_closure(problem["forward"])["_field"])["k_vec"]
+    return {"wave_vectors": np.asarray(k_vec, np.float64),
+            "obs_points": np.asarray(problem["observe_points"], np.float64)}

@@ -233,6 +233,23 @@ def chunk_indices(mesh, shard, chunk, c, device):
             + torch.arange(sub, dtype=torch.int64, device=device))
 
 
+def chunk_rows(mesh, chunk, c, fn):
+    """Per-sample rows of chunk ``c`` as one device computes them: ``fn``
+    maps a shard's sample indices (``chunk_indices``) to a tensor or a
+    tuple of tensors of rows, each shard's part runs on its device, and
+    the parts are concatenated over the mesh in index order on
+    ``devices[0]``. A driver that sums these rows adds them in the same
+    order for any shard count, so its sums equal one device's bit for bit.
+
+    :return: a tensor [chunk, ...] or a tuple of them
+    """
+    parts = [fn(chunk_indices(mesh, shard, chunk, c, device))
+             for shard, device in mesh.local_shards()]
+    if isinstance(parts[0], torch.Tensor):
+        return mesh.gather(parts)
+    return tuple(mesh.gather([p[j] for p in parts]) for j in range(len(parts[0])))
+
+
 def sample_mesh(n_devices: Optional[int] = None) -> SampleMesh:
     """Mesh over the first ``n_devices`` CUDA devices (None = all)."""
     count = torch.cuda.device_count() if torch.cuda.is_available() else 0

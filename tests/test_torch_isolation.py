@@ -30,6 +30,7 @@ sys.modules["jax"] = None          # any "import jax" now raises ImportError
 sys.modules["mlmc_tpu"] = None
 sys.modules["h5py"] = None
 sys.modules["yaml"] = None
+sys.modules["optax"] = None
 import numpy as np
 import mlmc_tpu_torch as mt
 for info in pkgutil.walk_packages(mt.__path__, "mlmc_tpu_torch."):
@@ -138,6 +139,14 @@ u = mt.UnbiasedMLMC(nested.nested_level_fn(nested.gaussian_information_fn(), n0=
                     mt.GeometricLevels(0.4), chunk_size=64, device="cpu")
 u.sample(64)
 assert np.isfinite(u.estimates()["mean"])
+from mlmc_tpu_torch import mcmc, mimc, mlblue, multifidelity, oed, risk
+prob = mcmc.make_darcy_inverse([16], n_modes=8)
+obs, flux = prob["forward"](torch.randn(4, prob["d"], dtype=torch.float64), 16)
+assert obs.shape == (4, 9) and bool(torch.isfinite(flux).all())
+fn, _ = mimc.heat_mimc_value_fn(n_modes=8)
+m = mimc.MIMC(fn, mimc.total_degree_set(2, 1), chunk_size=16, device="cpu")
+m.extend((1, 0), 16)
+assert m.n_samples.tolist() == [0, 0, 16] and np.isfinite(m.estimates()[0]).all()
 from mlmc_tpu_torch.tool import process_base, validation, distribution, config
 from mlmc_tpu_torch.plot import plots, violinplot
 import os
@@ -182,8 +191,8 @@ with tempfile.TemporaryDirectory() as tmp:
     assert mesh["points"].shape == (2, 2), mesh
     print("gmsh-parsed-by:", "native" if mt.FlowSim.parsers["native"] else "python")
 loaded = [m for m, mod in sys.modules.items() if mod is not None
-          and (m in ("jax", "mlmc_tpu", "h5py", "yaml")
-               or m.startswith(("jax.", "mlmc_tpu.", "h5py.", "yaml.")))]
+          and (m in ("jax", "mlmc_tpu", "h5py", "yaml", "optax")
+               or m.startswith(("jax.", "mlmc_tpu.", "h5py.", "yaml.", "optax.")))]
 assert not loaded, loaded
 print("isolated-ok")
 """
@@ -199,12 +208,12 @@ def test_import_without_jax():
 
 
 def test_no_jax_imports_in_sources():
-    """No source imports jax, mlmc_tpu, sklearn or gstools. ``h5py`` is
+    """No source imports jax, mlmc_tpu, optax, sklearn or gstools. ``h5py`` is
     imported only by ``tool/hdf5.py`` (and by the chip script's optional
     HDF5 pass) and ``yaml`` anywhere, but both only inside a function
     (indented), so the package imports on a machine that lacks them."""
     never = re.compile(
-        r"^\s*(import|from)\s+(jax|mlmc_tpu|sklearn|gstools)\b", re.M)
+        r"^\s*(import|from)\s+(jax|mlmc_tpu|optax|sklearn|gstools)\b", re.M)
     top_level = re.compile(r"^(import|from)\s+(h5py|yaml)\b", re.M)
     h5py_at_all = re.compile(r"^\s*(import|from)\s+h5py\b", re.M)
     h5py_allowed = {REPO / "mlmc_tpu_torch" / "tool" / "hdf5.py",
@@ -212,7 +221,9 @@ def test_no_jax_imports_in_sources():
     files = sorted((REPO / "mlmc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     for name in ("tool/hdf5.py", "tool/config.py", "tool/process_base.py",
                  "tool/gmsh_io.py", "tool/stats_tests.py", "plot/plots.py",
-                 "sim/diffusion3d.py", "random/frac_geom.py", "sim/flow_sim.py"):
+                 "sim/diffusion3d.py", "random/frac_geom.py", "sim/flow_sim.py",
+                 "mimc.py", "multifidelity.py", "mlblue.py", "risk.py", "mcmc.py",
+                 "oed.py"):
         assert (REPO / "mlmc_tpu_torch" / name) in files, name
     offenders = []
     for f in files:
@@ -393,6 +404,22 @@ def _default_device_calls():
         "sobol_indices": lambda: mt.sobol_indices(lambda u: u[:, 0], 2, n=64),
         "nested_unbiased_mlmc": lambda: mt.UnbiasedMLMC(
             mt.nested_level_fn(nested.gaussian_information_fn()), mt.GeometricLevels(0.5)),
+        "mimc": lambda: mt.MIMC(mt.heat_mimc_value_fn()[0], [(0, 0)]),
+        "mfmc": lambda: mt.MFMC(_fidelity_models()),
+        "mlblue": lambda: mt.mlblue(_fidelity_models(), [1.0, 0.1, 0.01], budget=10.0),
+        "cvar_mlmc": lambda: mt.cvar_mlmc(_pair, 1, 0.9, 0.1, 0.1),
+        "mlmc_gradient": lambda: mt.mlmc_gradient(_objective, np.ones(1), 1, 8),
+        "optimize_expectation": lambda: mt.optimize_expectation(_objective, np.ones(1), 1, 8,
+                                                                n_steps=1),
+        "run_pcn": lambda: mt.run_pcn(_toy_loglik, 2, 2),
+        "run_coupled": lambda: mt.run_coupled(_toy_loglik, _toy_loglik, 2, 2),
+        "run_mlda": lambda: mt.run_mlda([_toy_loglik, _toy_loglik], 2, 2),
+        "run_unbiased": lambda: mt.run_unbiased(_toy_loglik, 2, k=1, m=2),
+        "mlmcmc": lambda: mt.MLMCMC([_toy_loglik], 2).run(2),
+        "darcy_inverse_synthetic": lambda: mt.make_darcy_inverse([8], n_modes=4)["synthetic"](0),
+        "eig_nmc": lambda: mt.eig_nmc(lambda th: th, 0.5, 2, n_outer=8, n_inner=4),
+        "expected_information_gain": lambda: mt.expected_information_gain(
+            lambda th: th, 0.5, 2),
         **{"%s_%s" % (name, call): (
             lambda sim=sim, level=level, call=call: (
                 sim.calculate_batch(level(), None, 4) if call == "calculate_batch"
@@ -404,6 +431,21 @@ def _default_device_calls():
 
 def _zero_driver(t, x, y, z):
     return torch.zeros_like(y)
+
+
+def _fidelity_models():
+    from mlmc_tpu_torch.multifidelity import synth_fidelity_models
+
+    return synth_fidelity_models()
+
+
+def _objective(level, theta, keys):
+    x = keys.normals(1)[:, 0].double() * theta[0]
+    return x, x, torch.ones_like(x, dtype=torch.bool)
+
+
+def _toy_loglik(theta):
+    return -0.5 * (theta * theta).sum(1), theta[:, :1]
 
 
 def _pair(level, keys):
@@ -530,3 +572,32 @@ def test_first_users_default_to_the_card_on_a_card():
         u.sample(512)
         runs.append(u.estimates())
     np.testing.assert_allclose(runs[0]["mean"], runs[1]["mean"], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_drivers_and_chains_default_to_the_card_on_a_card():
+    """MIMC.extend, a 5-step run_pcn over a Darcy inverse batch and eig_nmc
+    run on the card when no device is named and equal the CPU's run
+    (float64; the keyed uniforms and normals are integer-derived, so only
+    the card's and the CPU's transcendentals may differ in the last bits)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the default device is the card")
+    fn, _ = mt.heat_mimc_value_fn(n_modes=16)
+    sums = []
+    for d in (None, "cpu"):
+        m = mt.MIMC(fn, mt.total_degree_set(2, 2), chunk_size=256, device=d)
+        for a in m.index_set:
+            m.extend(a, 512)
+        sums.append(m.estimates())
+    for a, b in zip(*sums):
+        np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-15)
+    prob = mt.make_darcy_inverse([16], n_modes=8)
+    _, _, data = prob["synthetic"](3, device="cpu")
+    (ll,) = prob["loglik_qoi_fns"](data)
+    runs = [mt.run_pcn(ll, prob["d"], 5, n_chains=8, seed=1, device=d) for d in (None, "cpu")]
+    assert runs[0].acc_rate == runs[1].acc_rate
+    np.testing.assert_allclose(runs[0].qoi, runs[1].qoi, rtol=1e-6)
+    fwd = lambda th: prob["forward"](th, 16)[0]
+    eig = [mt.eig_nmc(fwd, 0.05, prob["d"], n_outer=64, n_inner=16, chunk_size=32, device=d)
+           for d in (None, "cpu")]
+    np.testing.assert_allclose(eig[0]["eig"], eig[1]["eig"], rtol=1e-6)
