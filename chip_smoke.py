@@ -177,20 +177,53 @@ Run from the root of a checkout:  python3 chip_smoke.py
    fails unless kernels C and D were launched; holds them against their
    plain versions at the MCMC streams (D also within its derived bound);
    one JSON line;
-12. holds each kernel's outputs at its path's shapes against its plain
+12. the e45 path, with the counters reset just before it (the sizes of
+   bench_extra.py's bench_bayes_compact, bench_bayes, bench_rare,
+   bench_filter, bench_particle, bench_collocation and bench_pce rows, and
+   of tests/test_pod.py and tests/test_gp.py, as E45 says), each phase with
+   its host wall and its main batch's device events and idle share:
+   a. ES-MDA on the 3-d linear problem within 0.1 of the conjugate
+      posterior mean; hierarchical ES-MDA on the 16/32/64 Darcy inverse
+      problem, its misfit falling;
+   b. tempered SMC's log-evidence within 6 se of the closed form;
+      hierarchical SMC on the Darcy hierarchy (stages, solves/s, evidence);
+   c. Phi(-4) by subset simulation (within 6 se in log p) and by
+      cross-entropy IS (within 6 se); the Darcy flux tail on 32^2;
+   d. ETKF on Lorenz-96 at J = 64 / 256 / 1024 (RMSE below the noise at
+      J >= 256); enkf against kalman_filter; the MLEnKF fixed point exactly
+      zero;
+   e. the bootstrap PF on stochastic volatility (RMSE below the prior
+      sd); the 4-level Euler-OU MLPF, its corrections decaying, and the
+      same over SampleMesh([dev, dev]) equal bit for bit;
+   f. POD at n = 32, rank 24: energy > 0.99, held-out rho > 0.97, MFMC
+      with the surrogate (speedup > 1.2, calibrated within 6 se);
+   g. Gauss-Hermite collocation w = 2..4 of the 8-d flux (the ladder's
+      deltas falling), multilevel collocation, the adaptive grid;
+   h. a degree-3 PCE (165 terms), its Sobol' indices, the PCE in MFMC and
+      as a control variate;
+   i. bayes_opt on Branin (y_best < 0.397887 + 0.25), MultilevelGP on
+      Forrester;
+   j. the stored POD-surrogate series in a DeviceMemory (2^16 POD values,
+      2^12 (full, POD) pairs): kernel C's variances and kernel D's means,
+      D's level means equal to direct float64 means to 1e-12;
+   fails unless kernels C and D were launched; holds them against their
+   plain versions at the POD streams (D also within its derived bound);
+   one JSON line;
+13. holds each kernel's outputs at its path's shapes against its plain
    version (kernel C at the e2e, config-4 and structured streams; kernel D
    at the e2e and structured streams, also against an exact f64 summation,
    and two launches of it bit for bit against each other);
-13. times each kernel and its plain version at those shapes and computes
-   each kernel's bound from this run's inputs; kernels C and D also at
-   their largest launch, the structured tier's 12 x 5 streams.
+14. times each kernel and its plain version at those shapes and computes
+   each kernel's bound from this run's inputs (kernel A also in memory
+   mode, at the precision guard's launch); kernels C and D also at their
+   largest launch, the structured tier's 12 x 5 streams.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout. The last line is {"ok": true, "device": {...}}; the line before
 it lists the kernels with their launch counts (of all the paths, and by
 path under "launches_by_path"), errors, times and bounds; each
 configuration of the simulations path, and the persisted, sharded,
-darcy3d, sde_qmc, e2 and e3 paths, print one JSON line of their own.
+darcy3d, sde_qmc, e2, e3 and e45 paths, print one JSON line of their own.
 """
 import json
 import os
@@ -526,6 +559,20 @@ def storage_free_path(torch, dev):
     a_fma = sum(n * _fma_per_sample(N_MOMENTS, h) for n, h in zip(n_valid, has_coarse))
     a_bound = _bound(5 * (2 * N_MOMENTS + 2 * N_MOMENTS ** 2 + 1) * 8, 2 * a_fma,
                      FP64_FLOP_PER_S)
+    # kernel A's memory mode (the precision guard's launch): one level of
+    # N_PRECISION stored f32 normals, fine 0.25 / coarse 0.5
+    x_guard = torch.from_numpy(np.random.default_rng(99).normal(
+        size=N_PRECISION).astype(np.float32)).to(dev)
+    m_ms = _time_ms(torch, lambda: ck.synth_moment_pipeline_from_noise(
+        x_guard, N_MOMENTS, fine_step=0.25, coarse_step=0.5, domain=DOMAIN))
+    m_plain_ms = _time_ms(torch, lambda: ck.synth_mlmc_plain(
+        [x_guard], 0, [N_PRECISION], [0.25], [0.5], [True], N_MOMENTS, domain=DOMAIN,
+        device=dev), reps=3)
+    m_bound = _bound(4 * N_PRECISION + (2 * N_MOMENTS + 2 * N_MOMENTS ** 2 + 1) * 8,
+                     2 * N_PRECISION * _fma_per_sample(N_MOMENTS, True), FP64_FLOP_PER_S)
+    print("kernel A memory mode (the precision guard's launch, %d stored f32 normals, "
+          "R=25): %.3f ms vs plain %.3f ms (bound %.3f ms, %s)"
+          % (N_PRECISION, m_ms, m_plain_ms, m_bound[0], m_bound[1]))
     sm_mhz = float(_smi("clocks.max.sm").split()[0])
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     b_bound = _bound(4 * N_NORMALS, PHILOX_INT32_OPS * N_NORMALS,
@@ -542,7 +589,9 @@ def storage_free_path(torch, dev):
          "replaces": "mlmc_tpu/ops/pallas_kernels.py:605",
          "launches": counts["synth_mlmc"], "max_abs_err": err_a,
          "ms": a_ms, "plain_ms": a_plain_ms, "bound_ms": a_bound[0],
-         "bound_by": a_bound[1], "library_ms": None},
+         "bound_by": a_bound[1], "library_ms": None,
+         "memory_mode": {"samples": N_PRECISION, "ms": m_ms, "plain_ms": m_plain_ms,
+                         "bound_ms": m_bound[0], "bound_by": m_bound[1]}},
         {"name": "normals_dump", "route": "cuda",
          "source": "mlmc_tpu_torch/csrc/synth_mlmc.cu",
          "replaces": "mlmc_tpu/ops/pallas_kernels.py:1013",
@@ -3899,6 +3948,655 @@ def e3_path(torch, dev):
     return counts, {"samples_mlmc": errs[0], "samples_ext": errs[1]}
 
 
+# ------------------------------------------------------------------------ #
+# the e45 path (slices E4-E5): inference and surrogates
+# ------------------------------------------------------------------------ #
+E45 = dict(
+    # bench_bayes_compact's 3-d linear-Gaussian problem (noise-free data)
+    linear=dict(d=3, K=5, noise=0.5, seed=0),
+    esmda=dict(n_ens=2048, n_steps=4, seed=1, darcy_ens=128, darcy_steps=6),
+    darcy=dict(level_ns=[16, 32, 64], n_modes=64, noise=0.02, data_seed=3),
+    smc=dict(n_particles=1024, n_moves=6, seed=2),
+    rare=dict(gamma=4.0, n_particles=1024, n_moves=6, seed=3, ce_seed=4, n=32,
+              n_modes=64, pilot=4096, darcy_particles=2048, log_sds=4.75),
+    filter=dict(d=40, T=200, spin=100, ens=[64, 256, 1024], inflation=1.05, seed=5,
+                kf_ens=2048, ml_ens=64, ml_R=8, ml_T=10),
+    particle=dict(T=400, N=1 << 15, phi=0.98, sig=0.16, seed=6, ml_T=100, ml_r=0.5,
+                  ml_counts=[1 << 15, 1 << 14, 1 << 13, 1 << 12], trace_T=40),
+    pod=dict(n=32, rank=24, snapshots=64, held_out=256, costs=[1.0, 0.12], budget=3000.0,
+             chunk=1 << 8, pilot=1 << 10, check=2048),
+    colloc=dict(n=32, n_modes=4, levels=[2, 3, 4]),
+    pce=dict(degree=3, n_fit=1024, costs=[1.0, 1e-3], budget=2e4, pilot=1 << 12,
+             cv_n=1 << 14),
+    gp=dict(n_init=10, n_iter=25),
+    stored=dict(n0=1 << 16, n1=1 << 12, seed=11, moments=25),
+)
+
+
+def _e45_linear(torch, dev):
+    """bench_bayes_compact's problem: (A [K, d] on the card, y, the
+    conjugate posterior mean, log Z, the likelihood's constant)."""
+    P = E45["linear"]
+    rng = np.random.default_rng(P["seed"])
+    A = rng.standard_normal((P["K"], P["d"]))
+    y = A @ rng.standard_normal(P["d"])
+    noise = P["noise"]
+    sig = np.linalg.inv(np.eye(P["d"]) + A.T @ A / noise ** 2)
+    mu = sig @ A.T @ y / noise ** 2
+    S = A @ A.T + noise ** 2 * np.eye(P["K"])
+    log_z = -0.5 * (P["K"] * np.log(2 * np.pi) + np.linalg.slogdet(S)[1]
+                    + y @ np.linalg.solve(S, y))
+    const = -0.5 * P["K"] * np.log(2 * np.pi * noise ** 2)
+    return torch.tensor(A, device=dev), y, mu, float(log_z), const
+
+
+_E45_DARCY = {}
+
+
+def _e45_darcy(torch, dev, mt):
+    """bench_bayes's Darcy inverse problem (16/32/64, 64 modes, 9 pressure
+    observations) and its synthetic data; built once."""
+    if not _E45_DARCY:
+        P = E45["darcy"]
+        prob = mt.make_darcy_inverse(P["level_ns"], n_modes=P["n_modes"], sigma=1.0,
+                                     noise_std=P["noise"])
+        _E45_DARCY.update(prob=prob, data=prob["synthetic"](P["data_seed"], device=dev)[2])
+    return _E45_DARCY["prob"], _E45_DARCY["data"]
+
+
+def _e45_esmda(torch, dev, mt, out):
+    """a. ES-MDA: the linear problem against its conjugate posterior, and the
+    hierarchical run on the 16/32/64 Darcy hierarchy."""
+    P, noise = E45["esmda"], E45["linear"]["noise"]
+    A, y, mu, _, _ = _e45_linear(torch, dev)
+    t0 = time.perf_counter()
+    cal = mt.esmda(lambda th: th @ A.T, y, noise, n_ens=P["n_ens"], n_steps=P["n_steps"],
+                   d=A.shape[1], seed=P["seed"], device=dev)
+    lin_s = time.perf_counter() - t0
+    err = float(np.max(np.abs(cal["mean"] - mu)))
+    _require(err < 0.1, "ES-MDA linear: posterior mean off by %.3g (tol 0.1)" % err)
+    prob, data = _e45_darcy(torch, dev, mt)
+    fwds = [lambda th, n=n: prob["forward"](th, n)[0] for n in prob["level_ns"]]
+    hier = _e2_trace(torch, out, "esmda", "the hierarchical run (%d members, %d steps)"
+                     % (P["darcy_ens"], P["darcy_steps"]),
+                     lambda: mt.hierarchical_esmda(
+                         fwds, data, E45["darcy"]["noise"], n_ens=P["darcy_ens"],
+                         n_steps=P["darcy_steps"], d=prob["d"], seed=P["seed"],
+                         device=dev))
+    mis = hier["misfit"]
+    _require(np.all(np.isfinite(mis)) and mis[-1] < mis[0],
+             "hierarchical ES-MDA: the misfit did not fall: %s" % mis)
+    out["esmda"].update(linear_mean_err=err, linear_s=lin_s, misfit=list(map(float, mis)),
+                        n_forward=hier["n_forward"], hier_s=hier["wall_s"])
+    print("ES-MDA linear (J %d, %d steps): max |mean - posterior mean| %.3g (tol 0.1), "
+          "%.3f s; hierarchical 16/32/64 (J %d, %d steps): misfit %s, forwards per level "
+          "%s, %.3f s" % (P["n_ens"], P["n_steps"], err, lin_s, P["darcy_ens"],
+                          P["darcy_steps"], ["%.3g" % m for m in mis], hier["n_forward"],
+                          hier["wall_s"]))
+
+
+def _e45_smc(torch, dev, mt, out):
+    """b. Tempered SMC: the linear problem's evidence within 6 se of the
+    closed form; hierarchical SMC on the Darcy hierarchy."""
+    P, noise = E45["smc"], E45["linear"]["noise"]
+    A, y, _, log_z, const = _e45_linear(torch, dev)
+    yt = torch.tensor(y, device=dev)
+
+    def lin(th):
+        r = th @ A.T - yt
+        return const - 0.5 * (r * r).sum(1) / noise ** 2, th[:, :1]
+
+    smc = mt.smc_tempering(lin, A.shape[1], n_particles=P["n_particles"],
+                           n_moves=P["n_moves"], seed=P["seed"], device=dev)
+    dev_sig = abs(smc["log_evidence"] - log_z) / smc["log_evidence_se"]
+    _require(dev_sig < 6.0, "SMC linear: log Z %.5g vs %.5g, %.2f se"
+             % (smc["log_evidence"], log_z, dev_sig))
+    prob, data = _e45_darcy(torch, dev, mt)
+    fns = prob["loglik_qoi_fns"](data)
+    theta = torch.randn(P["n_particles"], prob["d"], dtype=torch.float64, device=dev,
+                        generator=torch.Generator(dev).manual_seed(P["seed"]))
+    _e2_trace(torch, out, "smc", "one 64^2 likelihood batch of %d particles"
+              % P["n_particles"], lambda: fns[-1](theta))
+    t0 = time.perf_counter()
+    hs = mt.hierarchical_smc(fns, prob["d"], n_particles=P["n_particles"],
+                             n_moves=P["n_moves"], seed=P["seed"], device=dev)
+    hs_s = time.perf_counter() - t0
+    solves = int(np.sum(hs["n_forward"]))
+    log_norm = -0.5 * len(data) * np.log(2 * np.pi * E45["darcy"]["noise"] ** 2)
+    _require(hs["lambdas"][-1] == 1.0 and np.isfinite(hs["log_evidence"])
+             and np.all(np.isfinite(hs["mean"])), "hierarchical SMC: %s" % hs["lambdas"])
+    out["smc"].update(linear_log_z=smc["log_evidence"], linear_log_z_exact=log_z,
+                      linear_err_se=dev_sig, linear_stages=len(smc["acc_rates"]),
+                      darcy_s=hs_s, darcy_stages=len(hs["acc_rates"]), darcy_solves=solves,
+                      darcy_solves_per_s=solves / hs_s, n_forward=hs["n_forward"],
+                      log_evidence=hs["log_evidence"] + log_norm,
+                      log_evidence_se=hs["log_evidence_se"], flux_mean=float(hs["mean"][0]),
+                      flux_se=float(hs["se"][0]), acc_final=hs["acc_rates"][-1])
+    print("SMC linear (%d particles, %d moves): log Z %.5g vs exact %.5g (%.2f se, tol 6), "
+          "%d stages; hierarchical 16/32/64: %.3f s, %d stages, %d solves (%.4g/s), log "
+          "evidence %.4f (se %.3g), flux %.6g (se %.3g), final acceptance %.3f"
+          % (P["n_particles"], P["n_moves"], smc["log_evidence"], log_z, dev_sig,
+             len(smc["acc_rates"]), hs_s, len(hs["acc_rates"]), solves, solves / hs_s,
+             hs["log_evidence"] + log_norm, hs["log_evidence_se"], hs["mean"][0],
+             hs["se"][0], hs["acc_rates"][-1]))
+
+
+def _e45_rare(torch, dev, mt, out):
+    """c. bench_bayes_compact's Phi(-4) by subset simulation and by
+    cross-entropy IS; bench_rare's Darcy flux tail."""
+    from math import erfc, sqrt
+
+    P = E45["rare"]
+    p_exact = 0.5 * erfc(P["gamma"] / sqrt(2.0))
+    ss = mt.subset_simulation(lambda th: th[:, 0], P["gamma"], E45["linear"]["d"],
+                              n_particles=P["n_particles"], n_moves=P["n_moves"],
+                              seed=P["seed"], device=dev)
+    ss_sig = abs(ss["log_p"] - np.log(p_exact)) / ss["log_p_se"]
+    _require(ss_sig < 6.0, "subset Phi(-4): p %.4g vs %.4g, %.2f se in log p"
+             % (ss["p"], p_exact, ss_sig))
+    ce = mt.cross_entropy_is(lambda th: th[:, 0], P["gamma"], E45["linear"]["d"],
+                             seed=P["ce_seed"], device=dev)
+    ce_sig = abs(ce["p"] - p_exact) / ce["p_se"]
+    _require(ce_sig < 6.0, "cross-entropy Phi(-4): p %.4g vs %.4g, %.2f se"
+             % (ce["p"], p_exact, ce_sig))
+    prob = mt.make_darcy_inverse([P["n"]], n_modes=P["n_modes"], sigma=1.0)
+    flux = lambda th: prob["forward"](th, P["n"])[1]
+    theta = torch.randn(P["pilot"], prob["d"], dtype=torch.float64, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+    pilot = _e2_trace(torch, out, "rare", "the pilot's %d flux solves at 32^2"
+                      % P["pilot"], lambda: flux(theta))
+    lg = torch.log(pilot)
+    gamma = float(torch.exp(lg.mean() + P["log_sds"] * lg.std(unbiased=False)))
+    t0 = time.perf_counter()
+    tail = mt.subset_simulation(flux, gamma, prob["d"], n_particles=P["darcy_particles"],
+                                n_moves=P["n_moves"], seed=1, device=dev)
+    tail_s = time.perf_counter() - t0
+    _require(0.0 < tail["p"] < 1e-3 and tail["p_lo"] < tail["p"] < tail["p_hi"]
+             and tail["n_stages"] >= 3, "Darcy flux tail: %s"
+             % {k: tail[k] for k in ("p", "p_lo", "p_hi", "n_stages")})
+    out["rare"].update(subset_p=ss["p"], subset_p_exact=p_exact, subset_err_se=ss_sig,
+                       subset_stages=ss["n_stages"], ce_p=ce["p"], ce_p_se=ce["p_se"],
+                       ce_err_se=ce_sig, ce_weight_ess=ce["weight_ess"], darcy_gamma=gamma,
+                       darcy_p=tail["p"], darcy_band=[tail["p_lo"], tail["p_hi"]],
+                       darcy_stages=tail["n_stages"], darcy_s=tail_s,
+                       darcy_solves_per_s=tail["n_forward"] / tail_s,
+                       darcy_acc_final=tail["acc_rates"][-1])
+    print("rare events: subset Phi(-4) %.4g vs %.4g (%.2f se in log p, %d stages); "
+          "cross-entropy %.4g (se %.3g, %.2f se, weight ESS %.3f); Darcy flux tail on 32^2 "
+          "(128-d RFF, %d particles): gamma %.4g, p %.3g in [%.3g, %.3g], %d stages, %.3f s "
+          "(%.4g solves/s)" % (ss["p"], p_exact, ss_sig, ss["n_stages"], ce["p"], ce["p_se"],
+                               ce_sig, ce["weight_ess"], P["darcy_particles"], gamma,
+                               tail["p"], tail["p_lo"], tail["p_hi"], tail["n_stages"],
+                               tail_s, tail["n_forward"] / tail_s))
+
+
+def _lorenz_truth(mt, torch, P):
+    """bench_filter's truth: a spun-up Lorenz-96 state and 200 cycles of
+    it, every other variable observed with unit noise (host, float64)."""
+    step = mt.lorenz96_step(dt=0.05)
+    x = torch.tensor(3.0 + np.random.default_rng(2).normal(size=(1, P["d"])))
+    for t in range(P["spin"]):
+        x = step(x, None, t)
+    rng = np.random.default_rng(3)
+    truth, ys, xt = [], [], x
+    for t in range(P["T"]):
+        xt = step(xt, None, t)
+        truth.append(xt[0].numpy())
+        ys.append(truth[-1][::2] + rng.normal(size=P["d"] // 2))
+    return x.numpy(), np.array(truth), np.array(ys)
+
+
+def _ou_euler_level(torch, kappa, sig_m, window, n_sub):
+    """OU over one window by n_sub Euler substeps, the noise drawn as
+    [N, n_sub d] from the keys (the same keys at any n_sub)."""
+    dt = window / n_sub
+
+    def transition(x, keys, t):
+        z = keys.normals(n_sub * x.shape[1], x.dtype).reshape(x.shape[0], n_sub, -1)
+        for j in range(n_sub):
+            x = x - kappa * x * dt + sig_m * np.sqrt(dt) * z[:, j]
+        return x
+    return transition
+
+
+def _e45_filter(torch, dev, mt, out):
+    """d. bench_filter: ETKF on Lorenz-96 at three ensemble sizes; enkf
+    against the exact Kalman filter; the MLEnKF fixed point."""
+    P = E45["filter"]
+    x_spun, truth, ys = _lorenz_truth(mt, torch, P)
+    step = mt.lorenz96_step(dt=0.05)
+    res = {}
+    for J in P["ens"]:
+        x0 = torch.tensor(x_spun + np.random.default_rng(4).normal(size=(J, P["d"])),
+                          device=dev)
+        run = lambda: mt.enkf(step, lambda xx: xx[:, ::2], ys, 1.0, n_ens=J, d=P["d"],
+                              x0=x0, inflation=P["inflation"], method="etkf",
+                              seed=P["seed"], device=dev)
+        o = (_e2_trace(torch, out, "filter", "the J = %d ETKF pass" % J, run)
+             if J == P["ens"][-1] else run())
+        o = run()                                   # the warm pass is timed
+        rmse = float(np.sqrt(np.mean((o["means"][P["T"] // 2:] - truth[P["T"] // 2:]) ** 2)))
+        res["J%d" % J] = dict(rmse=rmse, spread=float(o["spread"][-1]), wall_s=o["wall_s"],
+                              member_steps_per_s=J * P["T"] / o["wall_s"])
+        if J >= 256:
+            _require(rmse < 1.0, "ETKF Lorenz-96 J=%d: RMSE %.3f >= the noise 1.0" % (J, rmse))
+    rng = np.random.default_rng(0)
+    d, k, T = 4, 2, 40
+    M = 0.9 * np.linalg.qr(rng.normal(size=(d, d)))[0]
+    H = rng.normal(size=(k, d))
+    q, r = 0.3, 0.4
+    x, xs, ysl = rng.normal(size=d), [], []
+    for _ in range(T):
+        x = M @ x + q * rng.normal(size=d)
+        ysl.append(H @ x + r * rng.normal(size=k))
+        xs.append(x.copy())
+    kf = mt.kalman_filter(M, H, q ** 2 * np.eye(d), r ** 2 * np.eye(k), np.zeros(d),
+                          np.eye(d), np.array(ysl))
+    Mt, Ht = torch.tensor(M, device=dev), torch.tensor(H, device=dev)
+    ekf = mt.enkf(lambda x, keys, t: x @ Mt.T + q * keys.normals(d, x.dtype),
+                  lambda x: x @ Ht.T, np.array(ysl), r, n_ens=P["kf_ens"], d=d, seed=1,
+                  device=dev)
+    sd = np.sqrt(np.array([np.trace(c) / d for c in kf["covs"]]))
+    kf_rmse = np.sqrt(np.mean((ekf["means"] - kf["means"]) ** 2, axis=1))
+    ll_rel = abs(ekf["loglik"] - kf["loglik"]) / abs(kf["loglik"])
+    _require(np.all(kf_rmse < 0.5 * sd) and ll_rel < 0.02,
+             "enkf vs Kalman: rmse/sd %.3g, loglik rel %.3g"
+             % (float(np.max(kf_rmse / sd)), ll_rel))
+    tr = _ou_euler_level(torch, 1.0, 0.5, 0.5, 4)
+    data = np.random.default_rng(1).normal(size=(P["ml_T"], 1))
+    ml = mt.multilevel_enkf(lambda lev: tr, lambda x: x, data, 0.4, n_levels=3, d=1,
+                            n_ens=P["ml_ens"], n_replicates=P["ml_R"], method="etkf",
+                            seed=2, device=dev)
+    _require(np.all(ml["correction_l1"] == 0.0)
+             and np.array_equal(ml["means"], ml["level_means"][0]),
+             "MLEnKF identical kernels: corrections %s" % ml["correction_l1"])
+    out["filter"].update(lorenz=res, kf_max_rmse_over_sd=float(np.max(kf_rmse / sd)),
+                         kf_loglik_rel=ll_rel, mlenkf_corrections=ml["correction_l1"].tolist())
+    print("ETKF Lorenz-96 (40 vars, 20 obs, %d cycles): %s; enkf (J %d) vs the Kalman "
+          "filter: max rmse/sd %.3f (tol 0.5), loglik rel %.3g (tol 0.02); MLEnKF with "
+          "identical kernels: corrections exactly zero" % (
+              P["T"], {j: "RMSE %.3f, spread %.3f, %.0f member-steps/s" % (
+                  v["rmse"], v["spread"], v["member_steps_per_s"]) for j, v in res.items()},
+              P["kf_ens"], float(np.max(kf_rmse / sd)), ll_rel))
+
+
+def _ou_levels(n_levels, delta=0.5, theta=1.0, sigma=1.0):
+    """Euler OU transitions over one observation window sharing the
+    finest Brownian path through the keys (tests/test_particle.py's
+    hierarchy, drawn from the port's keys)."""
+    n_fin = 2 ** (n_levels - 1)
+
+    def make(lev):
+        n_sub = 2 ** lev
+        dt = delta / n_sub
+
+        def trans(x, keys, t):
+            dw = keys.normals(n_fin, x.dtype)
+            dw = (dw * np.sqrt(delta / n_fin)).reshape(x.shape[0], n_sub, -1).sum(-1)
+            xx = x[:, 0]
+            for i in range(n_sub):
+                xx = xx + (-theta * xx) * dt + sigma * dw[:, i]
+            return xx[:, None]
+        return trans
+    return make
+
+
+def _e45_particle(torch, dev, mt, out):
+    """e. bench_particle: the bootstrap PF on stochastic volatility; the
+    4-level Euler-OU MLPF, and the same over SampleMesh([dev, dev]) equal
+    to the one-device run bit for bit."""
+    P = E45["particle"]
+    phi, sig = P["phi"], P["sig"]
+    rng = np.random.default_rng(3)
+    xs, truth, ys = 0.0, [], []
+    for t in range(P["T"]):
+        xs = phi * xs + sig * rng.standard_normal()
+        truth.append(xs)
+        ys.append(np.exp(0.5 * xs) * rng.standard_normal())
+    truth, ys = np.array(truth), np.array(ys)[:, None]
+    prior_sd = sig / np.sqrt(1 - phi ** 2)
+
+    def trans(x, keys, t):
+        return phi * x + sig * keys.normals(1, x.dtype)
+
+    def ll(x, y):
+        return -0.5 * (x[:, 0] + y[0] * y[0] * torch.exp(-x[:, 0]))
+
+    kw = dict(n_particles=P["N"], d=1, seed=P["seed"],
+              x0_sampler=lambda keys: prior_sd * keys.normals(1, torch.float64), device=dev)
+    _e2_trace(torch, out, "particle", "%d cycles of the bootstrap PF (2^15 particles)"
+              % P["trace_T"], lambda: mt.particle_filter(trans, ll, ys[:P["trace_T"]], **kw))
+    pf = mt.particle_filter(trans, ll, ys, **kw)
+    rmse = float(np.sqrt(np.mean((pf["means"][P["T"] // 2:, 0] - truth[P["T"] // 2:]) ** 2)))
+    _require(rmse < prior_sd, "PF stochastic volatility: RMSE %.3f >= prior sd %.3f"
+             % (rmse, prior_sd))
+    rng = np.random.default_rng(7)
+    xs, ysou = 0.0, []
+    for t in range(P["ml_T"]):
+        for _ in range(8):
+            xs = xs * (1.0 - 0.5 / 8) + np.sqrt(0.5 / 8) * rng.standard_normal()
+        ysou.append(xs + P["ml_r"] * rng.standard_normal())
+    ysou = np.array(ysou)[:, None]
+    llou = lambda x, y: -0.5 * ((y[0] - x[:, 0]) / P["ml_r"]) ** 2
+    runs = {}
+    for name, mkw in (("one", dict(device=dev)),
+                      ("mesh", dict(mesh=mt.SampleMesh([dev, dev], group=False)))):
+        t0 = time.perf_counter()
+        runs[name] = mt.multilevel_particle_filter(_ou_levels(4), llou, ysou, n_levels=4,
+                                                   d=1, n_particles=P["ml_counts"],
+                                                   seed=8, **mkw)
+        runs[name]["host_s"] = time.perf_counter() - t0
+    ml = runs["one"]
+    c = ml["correction_l1"]
+    _require(np.all(np.isfinite(ml["means"])) and c[-1] < c[0],
+             "MLPF corrections do not decay: %s" % c)
+    same = all(np.array_equal(runs["mesh"][k], ml[k]) for k in ("means", "means_se",
+                                                                "correction_l1"))
+    _require(same, "MLPF over [dev, dev] differs from one device: max |dmeans| %.3g"
+             % float(np.max(np.abs(runs["mesh"]["means"] - ml["means"]))))
+    out["particle"].update(pf_rmse=rmse, pf_prior_sd=prior_sd, pf_loglik=pf["loglik"],
+                           pf_resample_frac=pf["resample_frac"], pf_wall_s=pf["wall_s"],
+                           pf_particle_steps_per_s=P["N"] * P["T"] / pf["wall_s"],
+                           mlpf_correction_l1=c.tolist(),
+                           mlpf_mean_se=float(np.mean(ml["means_se"])),
+                           mlpf_wall_s=ml["wall_s"], mlpf_mesh_wall_s=runs["mesh"]["wall_s"],
+                           mlpf_mesh_bit_for_bit=same)
+    print("bootstrap PF stochastic volatility (2^15 particles, %d cycles): RMSE %.3f < prior "
+          "sd %.3f, loglik %.1f, resampled %.3f, %.3f s (%.4g particle-steps/s); MLPF 4-level "
+          "OU %s: corrections %s, mean se %.3g, %.3f s; over [dev, dev] %.3f s, equal bit for "
+          "bit" % (P["T"], rmse, prior_sd, pf["loglik"], pf["resample_frac"], pf["wall_s"],
+                   P["N"] * P["T"] / pf["wall_s"], P["ml_counts"],
+                   ["%.3g" % v for v in c], np.mean(ml["means_se"]), ml["wall_s"],
+                   runs["mesh"]["wall_s"]))
+
+
+def _e45_pod(torch, dev, mt, out):
+    """f. tests/test_pod.py's POD surrogate at n = 32, rank 24: energy,
+    held-out correlation, and MFMC with the surrogate; returns it."""
+    from mlmc_tpu_torch.random.keyed import SampleKeys
+
+    P = E45["pod"]
+    t0 = time.perf_counter()
+    pod = mt.pod_darcy_surrogate(dict(sigma=1.0, corr_length=0.3), n=P["n"], rank=P["rank"],
+                                 n_snapshots=P["snapshots"], device=dev)
+    build_s = time.perf_counter() - t0
+    energy = float(pod["energy"][pod["rank"] - 1])
+    keys = SampleKeys(7, 0, torch.arange(P["held_out"], device=dev))
+    red = _e2_trace(torch, out, "pod", "the reduced model on %d identities" % P["held_out"],
+                    lambda: pod["model"](keys)).cpu().numpy()
+    full = pod["full_model"](keys).cpu().numpy()
+    rho = float(np.corrcoef(red, full)[0, 1])
+    _require(energy > 0.99 and rho > 0.97, "POD: energy %.4f, rho %.4f" % (energy, rho))
+    mf = mt.MFMC([pod["full_model"], pod["model"]], costs=P["costs"], seed=5,
+                 chunk_size=P["chunk"], device=dev)
+    st = mf.pilot(P["pilot"])
+    res = mf.estimate(budget=P["budget"])
+    check = pod["full_model"](SampleKeys(31, 0, torch.arange(P["check"], device=dev)))
+    check = check.cpu().numpy()
+    tol = 6 * np.sqrt(res["var"] + check.var() / check.size)
+    _require(res["speedup"] > 1.2 and abs(res["mean"] - check.mean()) < tol,
+             "POD MFMC: speedup %.3f, mean %.6g vs %.6g (tol %.3g)"
+             % (res["speedup"], res["mean"], check.mean(), tol))
+    out["pod"].update(build_s=build_s, energy_at_rank=energy, rho_held_out=rho,
+                      mfmc_rho=st["rho"].tolist(), mfmc_speedup=res["speedup"],
+                      mfmc_mean=res["mean"], mfmc_se=float(np.sqrt(res["var"])),
+                      plain_mean=float(check.mean()))
+    print("POD n=32 rank %d (%d snapshots, %.3f s): energy %.5f, held-out rho %.5f; MFMC "
+          "(costs %s, budget %g): pilot rho %s, speedup %.3f, mean %.6g vs a plain %d-sample "
+          "mean %.6g (tol %.3g)" % (pod["rank"], P["snapshots"], build_s, energy, rho,
+                                    P["costs"], P["budget"], np.round(st["rho"], 5).tolist(),
+                                    res["speedup"], res["mean"], P["check"], check.mean(),
+                                    tol))
+    return pod
+
+
+def _e45_collocation(torch, dev, mt, out):
+    """g. bench_collocation: the 8-d RFF flux on 32^2 by Gauss-Hermite
+    Smolyak w = 2..4; multilevel collocation on 16/32; the adaptive grid
+    on a closed form."""
+    P = E45["colloc"]
+    prob = mt.make_darcy_inverse([P["n"]], n_modes=P["n_modes"], sigma=1.0)
+    flux = lambda th: prob["forward"](th, P["n"])[1]
+    vals, nodes, walls = [], [], []
+    for w in P["levels"]:
+        grid = mt.SparseGrid(prob["d"], w, rule="gauss-hermite")
+        run = lambda: float(grid.integrate(flux, device=dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals.append(_e2_trace(torch, out, "collocation", "the w = %d grid (%d solves)"
+                              % (w, grid.n_nodes), run) if w == P["levels"][-1] else run())
+        walls.append(time.perf_counter() - t0)
+        nodes.append(grid.n_nodes)
+    deltas = [abs(b - a) for a, b in zip(vals, vals[1:])]
+    _require(deltas[-1] < deltas[0], "collocation ladder deltas do not fall: %s" % deltas)
+    pml = mt.make_darcy_inverse([16, 32], n_modes=P["n_modes"], sigma=1.0,
+                                wave_vectors=prob["wave_vectors"])
+    mlc = mt.multilevel_collocation([lambda th, n=n: pml["forward"](th, n)[1]
+                                     for n in (16, 32)], prob["d"], device=dev)
+    c = np.array([0.8, 0.5, 0.3, 0.2])
+    ct = torch.tensor(c, device=dev)
+    ad = mt.AdaptiveSparseGrid(4).integrate(lambda th: torch.exp(th @ ct), tol=1e-9,
+                                            max_evals=30000, device=dev)
+    exact = float(np.exp(0.5 * c @ c))
+    _require(ad["converged"] and abs(ad["mean"] - exact) < 5e-9 and np.isfinite(
+        float(mlc["mean"][0])), "adaptive grid %.12g vs %.12g (converged %s); multilevel %s"
+             % (ad["mean"], exact, ad["converged"], mlc["mean"]))
+    out["collocation"].update(n_nodes=nodes, values=vals, ladder_deltas=deltas, wall_s=walls,
+                              solves_per_s=nodes[-1] / walls[-1],
+                              multilevel_mean=float(mlc["mean"][0]),
+                              multilevel_nodes=mlc["n_nodes"],
+                              adaptive_err=abs(ad["mean"] - exact),
+                              adaptive_evals=ad["n_evals"])
+    print("collocation 8-d RFF flux on 32^2, Gauss-Hermite w=%s: nodes %s, values %s, "
+          "ladder deltas %s, %.4g solves/s at w=%d; multilevel 16/32 %.8g on %s nodes; "
+          "adaptive exp(c.theta) error %.3g in %d evaluations"
+          % (P["levels"], nodes, ["%.8g" % v for v in vals], ["%.3g" % v for v in deltas],
+             nodes[-1] / walls[-1], P["levels"][-1], mlc["mean"][0], mlc["n_nodes"],
+             abs(ad["mean"] - exact), ad["n_evals"]))
+
+
+def _e45_pce(torch, dev, mt, out):
+    """h. bench_pce: a degree-3 PCE of the 32^2 flux in 8 RFF dims from
+    1024 solves, its Sobol' indices, the PCE as MFMC's low-fidelity model,
+    and pce_control_variate."""
+    P = E45["pce"]
+    prob = mt.make_darcy_inverse([32], n_modes=4, sigma=1.0)
+    d = prob["d"]
+    flux = lambda th: prob["forward"](th, 32)[1]
+    theta = torch.randn(P["n_fit"], d, dtype=torch.float64, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+    t0 = time.perf_counter()
+    y = _e2_trace(torch, out, "pce", "the fit's %d flux solves" % P["n_fit"],
+                  lambda: flux(theta))
+    pce = mt.PCE(d, P["degree"], device=dev).fit_regression(theta, y)
+    fit_s = time.perf_counter() - t0
+    sob = pce.sobol()
+    _require(pce.n_terms == 165 and np.all(np.isfinite(sob["first_order"]))
+             and 0.0 < float(np.sum(sob["first_order"])) <= 1.0 + 1e-12,
+             "PCE: %d terms, first-order %s" % (pce.n_terms, sob["first_order"]))
+    hi = lambda keys: flux(keys.normals(d, torch.float64))
+    lo = lambda keys: pce(keys.normals(d, torch.float64))
+    mf = mt.MFMC([hi, lo], costs=P["costs"], seed=5, device=dev)
+    st = mf.pilot(P["pilot"])
+    res = mf.estimate(budget=P["budget"])
+    cv = mt.pce_control_variate(flux, pce, n=P["cv_n"], seed=1)
+    _require(np.isfinite(res["mean"]) and st["rho"][1] > 0.9 and cv["rho"] > 0.9
+             and cv["var_reduction"] > 1.0,
+             "PCE MFMC / CV: rho %s, CV %s" % (st["rho"], cv))
+    out["pce"].update(fit_s=fit_s, mean=pce.mean(), var=pce.var(),
+                      sobol_first=sob["first_order"].tolist(), mfmc_rho=st["rho"].tolist(),
+                      mfmc_mean=res["mean"], mfmc_se=float(np.sqrt(res["var"])),
+                      mfmc_speedup=res["speedup"], cv_mean=cv["mean"], cv_se=cv["se"],
+                      cv_rho=cv["rho"], cv_var_reduction=cv["var_reduction"])
+    print("PCE degree 3 (165 terms) of the 32^2 flux from %d solves (%.3f s): mean %.6g, var "
+          "%.4g, first-order Sobol' %s; as MFMC's low-fidelity model (costs %s, budget %g): "
+          "pilot rho %.5f, mean %.6g (se %.3g), speedup %.2f; control variate (n %d): %.6g "
+          "(se %.3g), rho %.5f, variance reduction %.1f"
+          % (P["n_fit"], fit_s, pce.mean(), pce.var(), np.round(sob["first_order"], 3).tolist(),
+             P["costs"], P["budget"], st["rho"][1], res["mean"], np.sqrt(res["var"]),
+             res["speedup"], P["cv_n"], cv["mean"], cv["se"], cv["rho"], cv["var_reduction"]))
+
+
+def _forrester(x):
+    return (6 * x - 2) ** 2 * np.sin(12 * x - 4)
+
+
+def _e45_gp(torch, dev, mt, out):
+    """i. tests/test_gp.py: bayes_opt on Branin and MultilevelGP on
+    Forrester."""
+    P = E45["gp"]
+
+    def branin(x):
+        x = x.cpu().numpy()
+        a, b, c = 1.0, 5.1 / (4 * np.pi ** 2), 5.0 / np.pi
+        r, s, t = 6.0, 10.0, 1.0 / (8 * np.pi)
+        return (a * (x[1] - b * x[0] ** 2 + c * x[0] - r) ** 2
+                + s * (1 - t) * np.cos(x[0]) + s)
+
+    bounds = np.array([[-5.0, 10.0], [0.0, 15.0]])
+    X = np.random.default_rng(0).uniform(bounds[:, 0], bounds[:, 1], size=(20, 2))
+    yb = np.array([branin(torch.tensor(x)) for x in X])
+    _e2_trace(torch, out, "gp", "one GP fit (200 Adam steps, 20 points)",
+              lambda: mt.GP("matern52", 1e-6, device=dev).fit(X, yb, n_steps=200))
+    bo = mt.bayes_opt(branin, bounds, n_init=P["n_init"], n_iter=P["n_iter"], noise=1e-6,
+                      seed=0, device=dev)
+    _require(bo["y_best"] < 0.397887 + 0.25, "bayes_opt Branin: y_best %.4f" % bo["y_best"])
+    x_lo = np.linspace(0, 1, 25)[:, None]
+    y_lo = 0.5 * _forrester(x_lo[:, 0]) + 10 * (x_lo[:, 0] - 0.5) - 5
+    x_hi = np.array([0.0, 0.3, 0.55, 0.8, 1.0])[:, None]
+    y_hi = _forrester(x_hi[:, 0])
+    ml = mt.MultilevelGP(noise=1e-4, device=dev).fit([(x_lo, y_lo), (x_hi, y_hi)],
+                                                      n_steps=300)
+    single = mt.GP(noise=1e-4, device=dev).fit(x_hi, y_hi, n_steps=300)
+    xs = np.linspace(0, 1, 101)[:, None]
+    truth = _forrester(xs[:, 0])
+    rmse_ml = float(np.sqrt(np.mean((ml.predict(xs)[0] - truth) ** 2)))
+    rmse_s = float(np.sqrt(np.mean((single.predict(xs)[0] - truth) ** 2)))
+    _require(rmse_ml < 0.5 and rmse_ml < 0.35 * rmse_s and 1.5 < ml.rhos[1] < 2.5,
+             "MultilevelGP Forrester: rmse %.3f vs single %.3f, rho %.3f"
+             % (rmse_ml, rmse_s, ml.rhos[1]))
+    out["gp"].update(bo_y_best=bo["y_best"], bo_x_best=bo["x_best"].tolist(),
+                     bo_wall_s=bo["wall_s"], mlgp_rmse=rmse_ml, single_rmse=rmse_s,
+                     mlgp_rho=ml.rhos[1], mlgp_wall_s=ml.wall_s)
+    print("bayes_opt Branin (%d + %d evaluations): y_best %.5f (tol 0.397887 + 0.25) at %s, "
+          "%.2f s; MultilevelGP Forrester: RMSE %.4f vs single-level %.4f, rho %.4f, %.2f s"
+          % (P["n_init"], P["n_iter"], bo["y_best"], np.round(bo["x_best"], 4).tolist(),
+             bo["wall_s"], rmse_ml, rmse_s, ml.rhos[1], ml.wall_s))
+
+
+def _e45_stored_pod(torch, dev, mt, out, pod):
+    """j. The stored POD-surrogate series: level 0 the POD model on 2^16
+    identities, level 1 the pairs (full, POD) on 2^12 shared identities, in a
+    DeviceMemory; Estimate's fast tier (kernel C variances) and extended
+    tier (kernel D means); D's level means of phi_1 against direct float64
+    means of the same values; returns the estimate."""
+    from mlmc_tpu_torch.ops import cuda_kernels as ck
+    from mlmc_tpu_torch.quantity.quantity_spec import QuantitySpec
+    from mlmc_tpu_torch.random.keyed import SampleKeys
+    from mlmc_tpu_torch.tags import TagRange
+
+    P = E45["stored"]
+    k0 = SampleKeys(P["seed"], 0, torch.arange(P["n0"], device=dev))
+    k1 = SampleKeys(P["seed"], 1, torch.arange(P["n1"], device=dev))
+    # the packed streams are float32: store float32 values, so the kernels'
+    # sums and the direct means below see the same numbers
+    f32 = lambda v: v.float().double()[:, None]
+    pairs = [(f32(pod["model"](k0)), None), (f32(pod["full_model"](k1)), f32(pod["model"](k1)))]
+    spec = [QuantitySpec(name="flux", unit="m^3/s", shape=(1,), times=[0],
+                         locations=["outflow"])]
+    storage = mt.DeviceMemory(device=dev)
+    storage.save_global_data(result_format=spec, level_parameters=[[1.0 / 32], [1.0 / 32]])
+    for lv, (f, c) in enumerate(pairs):
+        c = torch.zeros_like(f) if c is None else c
+        storage.save_scheduled_samples(lv, TagRange(lv, 0, f.shape[0]))
+        storage.save_samples_bulk(lv, TagRange(lv, 0, f.shape[0]), f, c)
+    values = torch.cat([pairs[0][0], pairs[1][0], pairs[1][1]])
+    lo, hi = float(values.min()), float(values.max())
+    domain = (lo - 0.05 * (hi - lo), hi + 0.05 * (hi - lo))
+    root = mt.make_root_quantity(storage, spec)
+    flux = root["flux"][0]["outflow"][0]
+    est = mt.Estimate(flux, storage, mt.Legendre(P["moments"], domain))
+    raw, ns = est.estimate_diff_vars_fast()                          # kernel C
+    mean, var = est.estimate_moments_extended()                      # kernel D
+    _require(ns.tolist() == [P["n0"], P["n1"]] and mean[0] == 1.0
+             and np.all(np.isfinite(raw[:, 1:])) and np.all(np.isfinite(var)),
+             "stored POD estimate: n %s, mean[0] %r" % (ns.tolist(), mean[0]))
+    scale, shift, offset = ck.transform_constants(domain, f64=True)[:3]
+    levels = est._extended_results(est._moments_fn, [0])[0]           # kernel D
+    got = []
+    for lv, r in enumerate(levels):
+        m1 = float(r.sums[1]) / float(r.n_valid)
+        got.append((m1 - offset) / scale + shift if lv == 0 else m1 / scale)
+    want = [float(pairs[0][0].mean()), float((pairs[1][0] - pairs[1][1]).mean())]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    _require(max(rel) <= 1e-12, "kernel D's level means %s vs the direct float64 means %s "
+             "(rel %s)" % (got, want, rel))
+    out.setdefault("stored_pod", {}).update(
+        n_samples=ns.tolist(), domain=list(domain), level_means_kernel_d=got,
+        level_means_direct=want, level_mean_rel_err=rel, level_diff_vars=raw[:, 1].tolist(),
+        flux_mean=got[0] + got[1])
+    print("stored POD series (levels %s samples): kernel C level variances of phi_1 %s and "
+          "kernel D means; kernel D's level means %s vs the direct float64 means %s, rel %s "
+          "(tol 1e-12); the telescoped flux mean %.8g"
+          % (ns.tolist(), ["%.3g" % v for v in raw[:, 1]], ["%.10g" % v for v in got],
+             ["%.10g" % v for v in want], ["%.2g" % r for r in rel], got[0] + got[1]))
+    return est
+
+
+def e45_path(torch, dev):
+    """Inference (ES-MDA, tempered SMC, rare events, ensemble and particle
+    filters) and surrogates (POD, collocation, PCE, GP) (slices E4-E5),
+    each phase with its wall and its main batch's device events and idle
+    share; kernels C and D on the stored POD-surrogate series; returns the
+    path's launch counts and the kernels' errors at its streams."""
+    import mlmc_tpu_torch as mt
+    from mlmc_tpu_torch.ops import cuda_extended as cx
+    from mlmc_tpu_torch.ops import cuda_kernels as ck
+    from mlmc_tpu_torch.ops.precision import EPS64, extended_bound_constant
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ck.reset_launch_counts()
+    cx.reset_launch_counts()
+    out = {"path": "e45"}
+    run = lambda key, label, fn, *args, whole=False: _e2_phase(
+        torch, out, key, label, lambda: fn(torch, dev, mt, out, *args), whole)
+    with Phase(torch, "e45 path") as whole:
+        run("esmda", "a. ES-MDA", _e45_esmda)
+        run("smc", "b. tempered SMC", _e45_smc)
+        run("rare", "c. rare events", _e45_rare)
+        run("filter", "d. ensemble Kalman filters", _e45_filter)
+        run("particle", "e. particle filters", _e45_particle)
+        pod = run("pod", "f. POD", _e45_pod)
+        run("collocation", "g. collocation", _e45_collocation)
+        run("pce", "h. PCE", _e45_pce)
+        run("gp", "i. GP", _e45_gp)
+        est = run("stored_pod", "j. the stored POD series (kernels C and D)",
+                  _e45_stored_pod, pod, whole=True)
+        counts = {**ck.launch_counts(), **cx.launch_counts()}
+    out.update(seconds=whole.seconds, launches=counts,
+               peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    print("e45 path: %.2f s; kernel launches %s; peak device memory %.3f GB"
+          % (whole.seconds, counts, out["peak_memory_gb"]))
+    for name in ("samples_mlmc", "samples_ext"):
+        _require(counts[name] > 0, "kernel %s was not launched by the e45 path" % name)
+    with Phase(torch, "kernels C/D vs plain at the stored POD streams"):
+        errs = _streams_vs_plain(torch, dev, est, "the stored POD streams")
+        mfn = est._moments_fn
+        streams = est._packed_streams(mfn, [0])
+        consts = ck.transform_constants(mfn.domain, f64=True)
+        got = cx.samples_ext_cuda(streams, mfn.size, basis="legendre", consts=consts,
+                                  device=dev)
+        plain, s_abs = (cx.samples_ext_plain(streams, mfn.size, basis="legendre",
+                                             consts=consts, absolute=a) for a in (False, True))
+        bound = EPS64 * extended_bound_constant()
+        _, rel = _compare(torch, got, plain, s_abs, "kernel D at the stored POD streams",
+                          rtol=bound)
+        print("kernel D at the stored POD streams within its derived bound %.3g * S_abs: "
+              "max / S_abs %.3g" % (bound, rel))
+    print(json.dumps(out))
+    return counts, {"samples_mlmc": errs[0], "samples_ext": errs[1]}
+
+
 def _cdf_run(mt, pair, mesh, dev):
     m = mt.MultilevelCDF(pair, 3, np.linspace(-3.0, 3.0, 41), 0.1, seed=13,
                          chunk_size=1 << 10, mesh=mesh, device=dev)
@@ -3949,7 +4647,8 @@ def main():
              "darcy3d": darcy3d_path(torch, dev),
              "sde_qmc": sde_qmc_path(torch, dev),
              "e2": e2_path(torch, dev),
-             "e3": e3_path(torch, dev)}
+             "e3": e3_path(torch, dev),
+             "e45": e45_path(torch, dev)}
     kernels = []
     for path, of_path in own.items():
         for k in of_path:  # launches of every path; errors at every path's streams

@@ -28,7 +28,13 @@ drivers beyond MLMC: multi-index MC (``MIMC``), multifidelity MC
 (``MFMC``), multilevel BLUEs (``mlblue``), tail risk and optimization
 under uncertainty (``cvar_mlmc``, ``optimize_cvar``), multilevel MCMC on
 batched likelihoods (``MLMCMC``, ``run_pcn``, ``make_darcy_inverse``) and
-expected information gain (``eig_nmc``).
+expected information gain (``eig_nmc``). Inference: ensemble Kalman
+inversion (``esmda``), tempered SMC (``smc_tempering``), subset simulation
+and cross-entropy importance sampling, ensemble Kalman and particle
+filters with their multilevel forms (``enkf``, ``particle_filter``).
+Surrogates: POD reduced bases (``pod_darcy_surrogate``), sparse-grid
+collocation (``SparseGrid``), polynomial chaos (``PCE``) and Gaussian
+processes (``GP``, ``bayes_opt``).
 
 Module paths and public names mirror ``mlmc_tpu``: the counterpart of
 ``mlmc_tpu/X.py`` is ``mlmc_tpu_torch/X.py``. Importing the package has no
@@ -159,6 +165,17 @@ from mlmc_tpu_torch.oed import (eig_nmc, expected_information_gain,
                                 linear_gaussian_eig)
 from mlmc_tpu_torch.risk import (cvar_empirical, cvar_mlmc, mlmc_gradient,
                                  optimize_expectation, optimize_cvar)
+from mlmc_tpu_torch.eki import esmda, hierarchical_esmda
+from mlmc_tpu_torch.smc import smc_tempering, hierarchical_smc
+from mlmc_tpu_torch.particle import particle_filter, multilevel_particle_filter
+from mlmc_tpu_torch.filter import (enkf, multilevel_enkf, kalman_filter,
+                                   lorenz96_step)
+from mlmc_tpu_torch.rare import subset_simulation, cross_entropy_is
+from mlmc_tpu_torch.pod import pod_darcy_surrogate
+from mlmc_tpu_torch.collocation import (AdaptiveSparseGrid, SparseGrid,
+                                        multilevel_collocation)
+from mlmc_tpu_torch.pce import PCE, pce_control_variate, total_degree_indices
+from mlmc_tpu_torch.gp import GP, MultilevelGP, bayes_opt
 from mlmc_tpu_torch.convert import (
     accumulators_from_jax, field_from_jax, level_config_from_jax,
     mlqmc_from_jax, moments_from_jax, storage_from_jax)

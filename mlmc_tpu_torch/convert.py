@@ -245,3 +245,67 @@ def darcy_inverse_from_jax(problem):
         k_vec = _closure(_closure(problem["forward"])["_field"])["k_vec"]
     return {"wave_vectors": np.asarray(k_vec, np.float64),
             "obs_points": np.asarray(problem["observe_points"], np.float64)}
+
+
+def pod_from_jax(pod, dtype=torch.float64, device=None, phases=None):
+    """An ``mlmc_tpu`` ``pod_darcy_surrogate`` result as this package's
+    surrogate over the same basis: the basis ``V``, the grid size, and the
+    level config with its field's wave vectors, read from the closure of
+    its ``model``. The port's models take ``SampleKeys`` (``pod``).
+
+    :param phases: ``keys -> [C, M]`` RFF phases in place of the keyed
+        draw (``pod.pod_darcy_surrogate``'s)
+    :return: dict with ``model``, ``full_model``, ``energy``, ``rank``
+    """
+    from mlmc_tpu_torch.pod import _keyed_phases, _pod_models
+
+    free = _closure(_closure(pod["model"])["reduced_flux"])
+    cfg = level_config_from_jax(free["cfg"], device="cpu",
+                                dtype=str(dtype).replace("torch.", ""))
+    device = resolve_device(device)
+    model, full_model = _pod_models(cfg, int(free["n"]), np.asarray(free["V"], np.float64),
+                                    dtype, device, phases or _keyed_phases(cfg))
+    return {"model": model, "full_model": full_model,
+            "energy": np.asarray(pod["energy"]), "rank": int(pod["rank"])}
+
+
+def pce_from_jax(pce, dtype=torch.float64, device=None):
+    """A fitted ``mlmc_tpu`` ``PCE`` as this package's: its index set,
+    basis and coefficients (and whether it was fitted on a scalar QoI).
+
+    :param device: None = the current CUDA device
+    """
+    from mlmc_tpu_torch.pce import PCE
+
+    out = PCE(pce.d, pce.degree, basis=pce.basis, indices=np.asarray(pce.indices),
+              dtype=dtype, device=device)
+    if pce.coefficients is not None:
+        out.coefficients = torch.tensor(
+            np.asarray(pce.coefficients, np.float64)).to(out.device, dtype)
+        out._scalar = bool(pce._scalar)
+    return out
+
+
+def gp_from_jax(gp, device=None):
+    """A fitted ``mlmc_tpu`` ``GP`` as this package's: its kernel (by
+    name), fixed noise, the fitted ``params`` (log lengthscales, log
+    signal, log noise, mean, rho), the training inputs ``X``, the Cholesky
+    factor ``L`` and ``alpha``, in float64.
+
+    :param device: None = the current CUDA device
+    """
+    from mlmc_tpu_torch.gp import GP
+
+    name = {"rbf_kernel": "rbf", "matern52_kernel": "matern52"}.get(
+        getattr(gp._kernel, "__name__", None))
+    if name is None:
+        raise TypeError("no counterpart for kernel %r" % (gp._kernel,))
+    out = GP(name, gp._noise, dtype=torch.float64, device=device)
+    st = gp._state
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float64)).to(out._device)
+
+    out._state = dict(X=t(st["X"]), params=[t(p) for p in st["params"]],
+                      L=t(st["L"]), alpha=t(st["alpha"]))
+    return out

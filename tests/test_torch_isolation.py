@@ -190,6 +190,11 @@ with tempfile.TemporaryDirectory() as tmp:
     mesh = mt.FlowSim.extract_mesh(mesh_file)
     assert mesh["points"].shape == (2, 2), mesh
     print("gmsh-parsed-by:", "native" if mt.FlowSim.parsers["native"] else "python")
+res = mt.esmda(lambda th: th, [0.1, 0.2], 0.5, n_ens=16, d=2, device="cpu")
+assert res["theta"].shape == (16, 2)
+gp = mt.GP(device="cpu").fit(np.linspace(0, 1, 6)[:, None], np.sin(np.arange(6.0)), n_steps=3)
+assert np.isfinite(gp.predict(np.zeros((2, 1)))[0]).all()
+assert abs(mt.SparseGrid(2, 2).integrate(lambda th: th[:, 0] ** 2, device="cpu") - 1.0) < 1e-12
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m in ("jax", "mlmc_tpu", "h5py", "yaml", "optax")
                or m.startswith(("jax.", "mlmc_tpu.", "h5py.", "yaml.", "optax.")))]
@@ -223,7 +228,8 @@ def test_no_jax_imports_in_sources():
                  "tool/gmsh_io.py", "tool/stats_tests.py", "plot/plots.py",
                  "sim/diffusion3d.py", "random/frac_geom.py", "sim/flow_sim.py",
                  "mimc.py", "multifidelity.py", "mlblue.py", "risk.py", "mcmc.py",
-                 "oed.py"):
+                 "oed.py", "eki.py", "smc.py", "particle.py", "filter.py", "rare.py",
+                 "pod.py", "collocation.py", "pce.py", "gp.py"):
         assert (REPO / "mlmc_tpu_torch" / name) in files, name
     offenders = []
     for f in files:
@@ -420,6 +426,34 @@ def _default_device_calls():
         "eig_nmc": lambda: mt.eig_nmc(lambda th: th, 0.5, 2, n_outer=8, n_inner=4),
         "expected_information_gain": lambda: mt.expected_information_gain(
             lambda th: th, 0.5, 2),
+        "esmda": lambda: mt.esmda(lambda th: th, [0.0], 1.0, n_ens=4, d=1),
+        "hierarchical_esmda": lambda: mt.hierarchical_esmda([lambda th: th], [0.0], 1.0,
+                                                            n_ens=4, d=1),
+        "smc_tempering": lambda: mt.smc_tempering(_toy_loglik, 2, n_particles=16),
+        "hierarchical_smc": lambda: mt.hierarchical_smc([_toy_loglik] * 2, 2,
+                                                        n_particles=16),
+        "particle_filter": lambda: mt.particle_filter(
+            _toy_transition, _toy_obs_loglik, np.zeros((2, 1)), 16, 1),
+        "multilevel_particle_filter": lambda: mt.multilevel_particle_filter(
+            lambda lev: _toy_transition, _toy_obs_loglik, np.zeros((2, 1)), 2, 1,
+            n_particles=16),
+        "enkf": lambda: mt.enkf(_toy_transition, lambda x: x, np.zeros((2, 1)), 1.0, 8, 1),
+        "multilevel_enkf": lambda: mt.multilevel_enkf(
+            lambda lev: _toy_transition, lambda x: x, np.zeros((2, 1)), 1.0, 2, 1, n_ens=8),
+        "subset_simulation": lambda: mt.subset_simulation(lambda th: th[:, 0], 1.0, 2,
+                                                          n_particles=160),
+        "cross_entropy_is": lambda: mt.cross_entropy_is(lambda th: th[:, 0], 1.0, 2),
+        "pod_darcy_surrogate": lambda: mt.pod_darcy_surrogate(n=8, rank=2, n_snapshots=4),
+        "sparse_grid_integrate": lambda: mt.SparseGrid(2, 1).integrate(lambda th: th[:, 0]),
+        "adaptive_sparse_grid": lambda: mt.AdaptiveSparseGrid(2).integrate(
+            lambda th: th[:, 0]),
+        "multilevel_collocation": lambda: mt.multilevel_collocation(
+            [lambda th: th[:, 0]], 2),
+        "pce": lambda: mt.PCE(2, 1),
+        "gp": lambda: mt.GP(),
+        "multilevel_gp": lambda: mt.MultilevelGP(),
+        "bayes_opt": lambda: mt.bayes_opt(lambda x: float(x.sum()), [[0.0, 1.0]], n_init=2,
+                                          n_iter=1),
         **{"%s_%s" % (name, call): (
             lambda sim=sim, level=level, call=call: (
                 sim.calculate_batch(level(), None, 4) if call == "calculate_batch"
@@ -446,6 +480,14 @@ def _objective(level, theta, keys):
 
 def _toy_loglik(theta):
     return -0.5 * (theta * theta).sum(1), theta[:, :1]
+
+
+def _toy_transition(x, keys, t):
+    return 0.9 * x + keys.normals(x.shape[1], x.dtype)
+
+
+def _toy_obs_loglik(x, y):
+    return -0.5 * ((x - y) ** 2).sum(1)
 
 
 def _pair(level, keys):
@@ -601,3 +643,77 @@ def test_drivers_and_chains_default_to_the_card_on_a_card():
     eig = [mt.eig_nmc(fwd, 0.05, prob["d"], n_outer=64, n_inner=16, chunk_size=32, device=d)
            for d in (None, "cpu")]
     np.testing.assert_allclose(eig[0]["eig"], eig[1]["eig"], rtol=1e-6)
+
+
+def _mlmc_tpu_exports():
+    """The public names ``mlmc_tpu/__init__.py`` exports: what its top-level
+    ``from mlmc_tpu... import`` statements bind, its public classes and
+    functions, and ``__version__`` (read as source: no JAX import)."""
+    import ast
+
+    tree = ast.parse((REPO / "mlmc_tpu" / "__init__.py").read_text())
+    names = {"__version__"}
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom) and (node.module or "").startswith("mlmc_tpu"):
+            names.update(a.asname or a.name for a in node.names)
+        elif isinstance(node, ast.Try):
+            for sub in node.body:
+                if isinstance(sub, ast.ImportFrom) and (sub.module or "").startswith("mlmc_tpu"):
+                    names.update(a.asname or a.name for a in sub.names)
+        elif isinstance(node, (ast.ClassDef, ast.FunctionDef)) and not node.name.startswith("_"):
+            names.add(node.name)
+    return names
+
+
+def test_every_mlmc_tpu_export_is_ported():
+    names = _mlmc_tpu_exports()
+    assert {"esmda", "smc_tempering", "particle_filter", "pod_darcy_surrogate",
+            "SparseGrid", "PCE", "GP", "bayes_opt", "SamplingPoolPBS"} <= names
+    assert len(names) > 150
+    missing = sorted(n for n in names if not hasattr(mt, n))
+    assert not missing, missing
+
+
+@pytest.mark.cuda
+def test_inference_and_surrogates_run_on_the_card():
+    """esmda, smc_tempering, particle_filter, subset_simulation,
+    SparseGrid.integrate, PCE.fit_regression and GP.fit compute on the card
+    when no device is named and equal the CPU's run (float64; the keyed
+    draws are integer-derived, the float32 Box-Muller normals of the
+    filters' keys may differ in the last bit between the card's and the
+    CPU's transcendentals, so 1e-6 there; accept and resampling decisions
+    must agree)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the default device is the card")
+    A = torch.tensor(np.random.default_rng(0).normal(size=(5, 3)))
+    y = np.random.default_rng(1).normal(size=5)
+    runs = [mt.esmda(lambda th: th @ A.to(th.device).T, y, 0.5, n_ens=256, d=3, device=d)
+            for d in (None, "cpu")]
+    np.testing.assert_allclose(runs[0]["theta"], runs[1]["theta"], rtol=1e-9, atol=1e-12)
+
+    def ll(th):
+        r = th @ A.to(th.device).T - torch.as_tensor(y, device=th.device)
+        return -0.5 * (r * r).sum(1) / 0.25, th
+    runs = [mt.smc_tempering(ll, 3, n_particles=256, device=d) for d in (None, "cpu")]
+    assert runs[0]["lambdas"] == pytest.approx(runs[1]["lambdas"], rel=1e-9)
+    np.testing.assert_allclose(runs[0]["theta"], runs[1]["theta"], rtol=1e-8, atol=1e-10)
+    ys = np.random.default_rng(2).normal(size=(10, 1))
+    runs = [mt.particle_filter(_toy_transition, _toy_obs_loglik, ys, 1024, 1, device=d)
+            for d in (None, "cpu")]
+    np.testing.assert_allclose(runs[0]["means"], runs[1]["means"], rtol=1e-6, atol=1e-8)
+    runs = [mt.subset_simulation(lambda th: th[:, 0], 3.0, 2, n_particles=512, device=d)
+            for d in (None, "cpu")]
+    assert runs[0]["thresholds"] == pytest.approx(runs[1]["thresholds"], rel=1e-9)
+    assert runs[0]["log_p"] == pytest.approx(runs[1]["log_p"], rel=1e-9)
+    f = lambda th: torch.exp(0.3 * th[:, 0] - 0.2 * th[:, 1])
+    vals = [mt.SparseGrid(2, 4).integrate(f, device=d) for d in (None, "cpu")]
+    np.testing.assert_allclose(vals[0], vals[1], rtol=1e-13)
+    theta = np.random.default_rng(3).normal(size=(200, 3))
+    fits = [mt.PCE(3, 3, device=d).fit_regression(theta, np.sin(theta[:, 0]) * theta[:, 1])
+            for d in (None, "cpu")]
+    np.testing.assert_allclose(fits[0].coefficients.cpu().numpy(),
+                               fits[1].coefficients.numpy(), rtol=1e-9, atol=1e-12)
+    X = np.random.default_rng(4).uniform(size=(20, 2))
+    gps = [mt.GP(device=d).fit(X, np.sin(4 * X[:, 0]) + X[:, 1], n_steps=50)
+           for d in (None, "cpu")]
+    np.testing.assert_allclose(gps[0].nll_trace, gps[1].nll_trace, rtol=1e-8)
