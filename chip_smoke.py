@@ -166,7 +166,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    c. MFMC on the heat fidelities, the synthetic family against its law;
    d. MLBLUE on the same family, within 6 se of MFMC;
    e. GBM VaR/CVaR at 0.95 within 6 se of the lognormal forms, and the
-      CVaR-optimal put hedge no worse than unhedged;
+      CVaR-optimal put hedge no worse than unhedged (on risk.adam);
    f. MLMCMC on the Darcy inverse problem (16/32/64, 256 chains): the
       posterior-mean misfit below a tenth of the prior's, acceptance rates
       in (0, 1); the CRN fixed point exactly zero; MLDA and unbiased pairs;
@@ -202,7 +202,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    h. a degree-3 PCE (165 terms), its Sobol' indices, the PCE in MFMC and
       as a control variate;
    i. bayes_opt on Branin (y_best < 0.397887 + 0.25), MultilevelGP on
-      Forrester;
+      Forrester, all on risk.adam;
    j. the stored POD-surrogate series in a DeviceMemory (2^16 POD values,
       2^12 (full, POD) pairs): kernel C's variances and kernel D's means,
       D's level means equal to direct float64 means to 1e-12;
@@ -215,8 +215,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    and two launches of it bit for bit against each other);
 14. times each kernel and its plain version at those shapes and computes
    each kernel's bound from this run's inputs (kernel A also in memory
-   mode, at the precision guard's launch); kernels C and D also at their
-   largest launch, the structured tier's 12 x 5 streams.
+   mode, at the precision guard's launch); kernels C and D and their plain
+   versions also at their largest launch, the structured tier's 12 x 5
+   streams; kernel B's library time is torch.randn's at its 1e7 normals.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout. The last line is {"ok": true, "device": {...}}; the line before
@@ -556,6 +557,11 @@ def storage_free_path(torch, dev):
     b_ms = _time_ms(torch, lambda: ck.synth_normals(SEED + 1, N_NORMALS, device=dev))
     b_plain_ms = _time_ms(torch, lambda: ck.philox_normals(SEED + 1, 0, 0, N_NORMALS,
                                                            device=dev))
+    # the library call drawing the same law (standard normals, float32) from
+    # torch's own Philox stream; timed here only, the port never calls it
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    b_lib_ms = _time_ms(torch, lambda: torch.randn(N_NORMALS, device=dev, generator=gen))
     a_fma = sum(n * _fma_per_sample(N_MOMENTS, h) for n, h in zip(n_valid, has_coarse))
     a_bound = _bound(5 * (2 * N_MOMENTS + 2 * N_MOMENTS ** 2 + 1) * 8, 2 * a_fma,
                      FP64_FLOP_PER_S)
@@ -579,9 +585,9 @@ def storage_free_path(torch, dev):
                      n_sm * INT32_LANES_PER_SM * sm_mhz * 1e6)
     print("times (CUDA events, median): kernel A %.3f ms vs plain %.3f ms at 1e8 "
           "samples (5 levels, R=25, RNG mode; bound %.3f ms, %s: %.4g f64 FMAs); "
-          "kernel B %.3f ms vs plain %.3f ms at 1e7 normals (bound %.4f ms, %s: "
-          "%d SMs x %d int32 lanes at %.0f MHz)"
-          % (a_ms, a_plain_ms, a_bound[0], a_bound[1], a_fma, b_ms, b_plain_ms,
+          "kernel B %.3f ms vs plain %.3f ms vs torch.randn %.3f ms at 1e7 normals "
+          "(bound %.4f ms, %s: %d SMs x %d int32 lanes at %.0f MHz)"
+          % (a_ms, a_plain_ms, a_bound[0], a_bound[1], a_fma, b_ms, b_plain_ms, b_lib_ms,
              b_bound[0], b_bound[1], n_sm, INT32_LANES_PER_SM, sm_mhz))
     return [
         {"name": "synth_mlmc", "route": "cuda",
@@ -597,7 +603,7 @@ def storage_free_path(torch, dev):
          "replaces": "mlmc_tpu/ops/pallas_kernels.py:1013",
          "launches": counts["normals_dump"], "max_abs_err": err_b,
          "ms": b_ms, "plain_ms": b_plain_ms, "bound_ms": b_bound[0],
-         "bound_by": b_bound[1], "library_ms": None},
+         "bound_by": b_bound[1], "library_ms": b_lib_ms},
     ]
 
 
@@ -848,6 +854,10 @@ def stored_path(torch, dev):
         streams12, N_MOMENTS, basis="legendre", consts=d_consts, device=dev))
     d_plain_ms = _time_ms(torch, lambda: cx.samples_ext_plain(
         streams, N_MOMENTS, basis="legendre", consts=d_consts), reps=3)
+    c12_plain_ms = _time_ms(torch, lambda: ck.samples_mlmc_plain(
+        streams12, N_MOMENTS, basis="legendre", consts=c_consts), reps=3)
+    d12_plain_ms = _time_ms(torch, lambda: cx.samples_ext_plain(
+        streams12, N_MOMENTS, basis="legendre", consts=d_consts), reps=3)
     n_out = len(streams.counts)
     c_bytes, c_flop = _stream_work(streams, got_c[0].n_valid.tolist(), N_MOMENTS, n_out)
     d_bytes, d_flop = _stream_work(streams, got_d[0].n_valid.tolist(), N_MOMENTS, n_out)
@@ -865,11 +875,12 @@ def stored_path(torch, dev):
           % (sum(streams.counts), c_ms, c_plain_ms, c_bound[0], c_bound[1], c_bytes,
              c_flop, d_ms, d_plain_ms, d_bound[0], d_bound[1]))
     print("kernels C and D at their largest launch, the structured streams (%d samples, "
-          "12 x 5 streams, R=25): kernel C %.3f ms (bound %.4f ms, %s: %.4g bytes, %.4g "
-          "f64 flop), beside %.3f ms at the e2e streams; kernel D %.3f ms (bound %.4f "
-          "ms, %s), beside %.3f ms at the e2e streams"
-          % (sum(streams12.counts), c12_ms, c12_bound[0], c12_bound[1], c12_bytes,
-             c12_flop, c_ms, d12_ms, d12_bound[0], d12_bound[1], d_ms))
+          "12 x 5 streams, R=25): kernel C %.3f ms vs plain %.3f ms (bound %.4f ms, %s: "
+          "%.4g bytes, %.4g f64 flop), beside %.3f ms at the e2e streams; kernel D %.3f "
+          "ms vs plain %.3f ms (bound %.4f ms, %s), beside %.3f ms at the e2e streams"
+          % (sum(streams12.counts), c12_ms, c12_plain_ms, c12_bound[0], c12_bound[1],
+             c12_bytes, c12_flop, c_ms, d12_ms, d12_plain_ms, d12_bound[0], d12_bound[1],
+             d_ms))
     return [
         {"name": "samples_mlmc", "route": "cuda",
          "source": "mlmc_tpu_torch/csrc/samples_mlmc.cu",
@@ -4478,8 +4489,9 @@ def _e45_gp(torch, dev, mt, out):
     out["gp"].update(bo_y_best=bo["y_best"], bo_x_best=bo["x_best"].tolist(),
                      bo_wall_s=bo["wall_s"], mlgp_rmse=rmse_ml, single_rmse=rmse_s,
                      mlgp_rho=ml.rhos[1], mlgp_wall_s=ml.wall_s)
-    print("bayes_opt Branin (%d + %d evaluations): y_best %.5f (tol 0.397887 + 0.25) at %s, "
-          "%.2f s; MultilevelGP Forrester: RMSE %.4f vs single-level %.4f, rho %.4f, %.2f s"
+    print("bayes_opt Branin (%d + %d evaluations, on risk.adam): y_best %.5f (tol 0.397887 "
+          "+ 0.25) at %s, %.2f s; MultilevelGP Forrester: RMSE %.4f vs single-level %.4f, "
+          "rho %.4f, %.2f s"
           % (P["n_init"], P["n_iter"], bo["y_best"], np.round(bo["x_best"], 4).tolist(),
              bo["wall_s"], rmse_ml, rmse_s, ml.rhos[1], ml.wall_s))
 

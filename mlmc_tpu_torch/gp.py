@@ -15,9 +15,10 @@ The fit is a Cholesky of the [n, n] kernel matrix; the hyperparameters
 the autoregressive rho, the coefficient of a known offset regressor)
 maximize the exact log marginal likelihood by Adam on its
 ``torch.autograd`` gradient, a Python loop of ``n_steps`` on the device
-whose NLL trace is fetched once at the end. ``risk.adam`` gives optax's
-Adam constants. A fixed noise and an absent offset are frozen exactly
-(their gradients are never formed, so Adam never moves them).
+whose NLL trace is fetched once at the end. ``risk.adam`` is optax's
+Adam on plain tensors, no ``torch.optim``. A fixed noise and an absent
+offset are frozen exactly (their gradients are never formed, so Adam never
+moves them).
 """
 import math
 import time

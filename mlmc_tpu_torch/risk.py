@@ -18,11 +18,12 @@
   paths are drawn from their identities and need no graph), and stochastic
   gradient descent on them, one Python step per iteration with the values
   kept on the device and fetched once at the end. The optimizer is a
-  ``torch.optim`` factory; the default is Adam with optax's ``adam(0.05)``
-  rule (betas 0.9 / 0.999, eps 1e-8), where ``mlmc_tpu`` takes an optax
-  transformation. CVaR optimization uses the joint program ``min_{theta,t}
-  t + E[spp_delta(f(theta) - t)]/(1-a)`` with the softplus-smoothed
-  positive part (bias <= delta*log2).
+  factory ``params -> optimizer`` (``step()``, ``zero_grad()``), a
+  ``torch.optim`` one included; the default is :class:`Adam`, optax's
+  ``adam(0.05)`` on plain tensors (betas 0.9 / 0.999, eps 1e-8), where
+  ``mlmc_tpu`` takes an optax transformation. CVaR optimization uses the
+  joint program ``min_{theta,t} t + E[spp_delta(f(theta) - t)]/(1-a)``
+  with the softplus-smoothed positive part (bias <= delta*log2).
 
 Level contract: ``pair_fn(level, keys) -> (fine [C], coarse [C], valid
 [C])`` with ``keys`` a ``random.keyed.SampleKeys`` (coarse ignored at
@@ -315,10 +316,57 @@ def mlmc_gradient(obj_fn: Callable, theta, n_levels: int, n_per_level,
             "n_valid": flat[2 * n_levels:]}
 
 
+class Adam:
+    """``optax.adam(lr)``'s update on plain tensors: ``scale_by_adam`` then
+    ``scale_by_learning_rate``, in optax's order of operations,
+
+        mu = (1 - b1) g + b1 mu,   nu = (1 - b2) g^2 + b2 nu,   t += 1,
+        p += -lr * (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps),
+
+    with ``step()`` reading every parameter's ``.grad`` and ``zero_grad()``
+    clearing them. Each operation is one ``torch._foreach_*`` call over all
+    the parameters (14 launches a step on the card); IEEE addition
+    commutes, so ``b1 mu + (1 - b1) g`` rounds as optax's ``(1 - b1) g +
+    b1 mu``. Not a ``torch.optim.Optimizer``: its constructor imports
+    ``torch._dynamo``, whose config reads the working directory, so a
+    process whose working directory was removed could not build one."""
+
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def __init__(self, params, lr: float = 0.05):
+        self.params = list(params)
+        self.lr = float(lr)
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self):
+        self.count += 1
+        g, mu, nu = [p.grad for p in self.params], self.mu, self.nu
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, torch._foreach_mul(g, 1 - self.b1))
+        g2 = torch._foreach_mul(g, g)
+        torch._foreach_mul_(g2, 1 - self.b2)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_add_(nu, g2)
+        den = torch._foreach_div(nu, 1 - self.b2 ** self.count)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        upd = torch._foreach_div(mu, 1 - self.b1 ** self.count)
+        torch._foreach_div_(upd, den)
+        torch._foreach_mul_(upd, -self.lr)
+        torch._foreach_add_(self.params, upd)
+
+    def zero_grad(self):
+        for p in self.params:
+            p.grad = None
+
+
 def adam(lr: float = 0.05):
-    """``optax.adam(lr)``'s update (betas 0.9 / 0.999, eps 1e-8) as a
-    ``torch.optim`` factory: ``params -> Optimizer``."""
-    return lambda params: torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    """``optax.adam(lr)`` (betas 0.9 / 0.999, eps 1e-8) as an optimizer
+    factory: ``params -> Adam``."""
+    return lambda params: Adam(params, lr=lr)
 
 
 def optimize_expectation(obj_fn: Callable, theta0, n_levels: int,
@@ -330,8 +378,9 @@ def optimize_expectation(obj_fn: Callable, theta0, n_levels: int,
     takes one optimizer step. Values and gradient norms stay on the device
     until the end.
 
-    :param optimizer: a ``torch.optim`` factory ``params -> Optimizer``
-        (default :func:`adam` (0.05), optax's ``adam(0.05)`` rule), where
+    :param optimizer: a factory ``params -> optimizer`` with ``step()``
+        reading the params' ``.grad`` (a ``torch.optim`` class does;
+        default :func:`adam` (0.05), optax's ``adam(0.05)`` rule), where
         ``mlmc_tpu`` takes an optax transformation
     :param device: where the levels run; None = the current CUDA device
     :return: dict(theta (numpy, theta0's structure), values [n_steps] (the

@@ -21,7 +21,11 @@ sums accumulate in float64, where ``mlmc_tpu`` compensates float32 sums
 (seed, level, R, 2d)``; ``mlmc_tpu`` takes them from a JAX key.
 
 :func:`active_subspace` eigendecomposes ``E[grad f grad f^T]`` from
-``torch.func.vmap(torch.func.grad(fn))`` gradients.
+per-sample gradients: ``torch.autograd.grad`` of the sum of
+``torch.func.vmap(fn)`` over a chunk (each sample's value depends on its
+own input alone). ``torch.func.grad`` would import ``torch._dynamo``,
+whose config reads the working directory, which ``mlmc_tpu``'s
+``jax.grad`` never needs.
 """
 import time
 from typing import Callable, Optional, Sequence
@@ -233,7 +237,7 @@ def active_subspace(fn: Callable, dim: int, n_samples: int = 8192, seed: int = 0
     device = resolve_device(device)
     chunk = int(min(chunk_size, n_samples))
     n_chunks = max(-(-int(n_samples) // chunk), 2)
-    grad_fn = torch.func.vmap(torch.func.grad(fn))
+    value_fn = torch.func.vmap(fn)
     idx = torch.arange(chunk, dtype=torch.int64, device=device)
     t0 = time.perf_counter()
     halves = [torch.zeros((dim, dim), dtype=torch.float64, device=device) for _ in range(2)]
@@ -241,7 +245,9 @@ def active_subspace(fn: Callable, dim: int, n_samples: int = 8192, seed: int = 0
         keys = SampleKeys(seed, c, idx)
         x = (keys.normals(dim, dtype) if sampler is None
              else torch.as_tensor(sampler(keys, chunk)).to(device, dtype))
-        g = grad_fn(x).to(torch.float64)
+        with torch.enable_grad():
+            x = x.detach().requires_grad_(True)
+            g = torch.autograd.grad(value_fn(x).sum(), x)[0].to(torch.float64)
         halves[c % 2] = halves[c % 2] + g.T @ g
     c_even, c_odd = (h.cpu().numpy() for h in halves)
     n_even = chunk * ((n_chunks + 1) // 2)

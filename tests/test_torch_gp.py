@@ -1,7 +1,7 @@
 """mlmc_tpu_torch.gp against mlmc_tpu's, on the CPU in float64.
 
 The fit is Adam on the exact marginal likelihood in both packages (optax
-in JAX, ``risk.adam``'s ``torch.optim.Adam`` with optax's constants here):
+in JAX, ``risk.adam``'s copy of optax's update on plain tensors here):
 the same start, the same gradients up to rounding, but each Adam step
 normalizes by the running gradient moments, so the two parameter paths
 round apart slowly. Over the fits here (up to 100 steps) the NLL traces
@@ -19,6 +19,7 @@ import torch
 
 import mlmc_tpu_torch as mt
 from mlmc_tpu_torch import convert
+from torch_cwd import removed_working_directory
 
 torch.set_num_threads(1)
 jax.config.update("jax_enable_x64", True)
@@ -114,13 +115,28 @@ def _branin(x):
             + s * (1 - t) * np.cos(float(x[0])) + s)
 
 
+BRANIN_BOUNDS = np.array([[-5.0, 10.0], [0.0, 15.0]])
+BAYES_OPT = dict(n_init=6, n_iter=2, noise=1e-6, fit_steps=40, n_candidates=128)
+
+
+def _bayes_opt_torch(key):
+    """The port's ``bayes_opt`` on Branin with JAX's scramble words of
+    ``key``, at the sizes of ``test_bayes_opt_draws_jax_candidates``."""
+    from mlmc_tpu.ops import sobol as jax_sobol
+
+    words = lambda it: jax_sobol.scramble_seeds(jax.random.fold_in(key, it), 2)
+    scrambles = {it: torch.tensor(np.asarray(words(it)).astype(np.int64)) for it in range(3)}
+    return lambda: mt.bayes_opt(lambda x: _branin(x.numpy()), BRANIN_BOUNDS, device="cpu",
+                                scrambles=scrambles.__getitem__, **BAYES_OPT)
+
+
 def test_bayes_opt_draws_jax_candidates():
     """With JAX's scramble words the initial design is JAX's Sobol' design
     (``bayes_opt``'s round 0) and each round picks from JAX's candidate
     set; the Branin run itself is held on the card (``chip_smoke.py``)."""
     from mlmc_tpu.ops import sobol as jax_sobol
 
-    bounds = np.array([[-5.0, 10.0], [0.0, 15.0]])
+    bounds = BRANIN_BOUNDS
     key, dv = jax.random.key(0), jax_sobol.direction_numbers(2)
     words = lambda it: jax_sobol.scramble_seeds(jax.random.fold_in(key, it), 2)
 
@@ -128,9 +144,7 @@ def test_bayes_opt_draws_jax_candidates():
         u = np.asarray(jax_sobol.sobol_uniforms(dv, 0, n, seeds=words(it)), np.float64)
         return bounds[:, 0] + (bounds[:, 1] - bounds[:, 0]) * u
 
-    rt = mt.bayes_opt(lambda x: _branin(x.numpy()), bounds, n_init=6, n_iter=2,
-                      noise=1e-6, fit_steps=40, n_candidates=128, device="cpu",
-                      scrambles=lambda it: torch.tensor(np.asarray(words(it)).astype(np.int64)))
+    rt = _bayes_opt_torch(key)()
     np.testing.assert_array_equal(rt["X"][:6], jax_points(0, 6))
     for it in (1, 2):
         assert (jax_points(it, 128) == rt["X"][5 + it]).all(1).any()
@@ -138,6 +152,34 @@ def test_bayes_opt_draws_jax_candidates():
     assert rt["ei_trace"].shape == (2,) and np.all(rt["ei_trace"] >= 0)
     with pytest.raises(ValueError, match="bounds"):
         mt.bayes_opt(_branin, np.array([[1.0, 0.0]]), device="cpu")
+
+
+@pytest.mark.parametrize("call", ["fit", "bayes_opt"])
+def test_gp_runs_without_a_working_directory(call, tmp_path):
+    """The fit's Adam needs no working directory, as optax does not
+    (``torch.optim``'s constructor imports ``torch._dynamo``, whose config
+    reads it): the port's call in a removed directory matches mlmc_tpu's."""
+    from mlmc_tpu import gp as jgp
+
+    if call == "fit":
+        X, y = _data(noise=0.05)
+        gj = jgp.GP("rbf", 1e-4).fit(X, y, n_steps=60)
+        with removed_working_directory(tmp_path):
+            gt = mt.GP("rbf", 1e-4, device="cpu").fit(X, y, n_steps=60)
+        np.testing.assert_allclose(gt.nll_trace, gj.nll_trace, rtol=NLL_RTOL)
+        Xs = np.random.default_rng(5).uniform(0, 2, size=(9, 2))
+        for a, b in zip(gt.predict(Xs), gj.predict(Xs)):
+            np.testing.assert_allclose(a, b, rtol=PRED_RTOL)
+        return
+    key = jax.random.key(0)
+    rj = jgp.bayes_opt(_branin, BRANIN_BOUNDS, key=key, **BAYES_OPT)
+    run = _bayes_opt_torch(key)
+    with removed_working_directory(tmp_path):
+        rt = run()
+    np.testing.assert_array_equal(rt["X"], np.asarray(rj["X"]))
+    np.testing.assert_array_equal(rt["y"], np.asarray(rj["y"]))
+    np.testing.assert_allclose(rt["ei_trace"], np.asarray(rj["ei_trace"]), rtol=PRED_RTOL)
+    assert rt["y_best"] == float(rj["y_best"])
 
 
 def test_validation():

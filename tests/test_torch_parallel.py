@@ -363,13 +363,13 @@ def test_mesh_bootstrap_takes_the_poisson_scheme_only(replace):
         est.est_bootstrap_fast(n_subsamples=9, replace="poisson", mesh=_cpu_mesh(2))
 
 
-def test_sampling_pool_pbs_shim():
+def test_sampling_pool_pbs_shim(tmp_path):
     """The PBS pool is a DeviceBatchPool sharded over the mesh; its PBS
     options are ignored with a DeprecationWarning."""
     sim = mt.SynthSimulation(dict(distr="norm", complexity=2))
     with pytest.warns(DeprecationWarning, match="shim"):
-        pool = mt.SamplingPoolPBS("work", clean=True, debug=False, device="cpu",
-                                  n_cores=4, mem="2gb")
+        pool = mt.SamplingPoolPBS(str(tmp_path / "work"), clean=True, debug=False,
+                                  device="cpu", n_cores=4, mem="2gb")
     assert isinstance(pool, mt.DeviceBatchPool)
     assert pool._sharding.n_devices == 1 and pool._device.type == "cpu"
     storage = mt.DeviceMemory(device="cpu")

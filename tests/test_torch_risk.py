@@ -6,9 +6,15 @@ i)``, the tail stage ``(seed + 2, l, i)``; the gradient drivers' ``(key,
 l, step, i)``) has its normals computed once in JAX; the port's pair and
 objective functions look them up by their ``SampleKeys``. VaR, CVaR,
 their errors and counts, gradients and a short Adam trajectory (optax's
-against ``torch.optim.Adam``) then agree to 1e-10. ``cvar_mlmc`` over a
-``SampleMesh`` of repeated CPU devices equals one device bit for bit.
+against ``risk.adam``'s copy of it) then agree to 1e-10. ``cvar_mlmc``
+over a ``SampleMesh`` of repeated CPU devices equals one device bit for
+bit.
 """
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,11 +24,14 @@ import torch
 import mlmc_tpu_torch as mt
 from mlmc_tpu_torch import risk as tr
 from mlmc_tpu_torch.parallel import SampleMesh
+from torch_cwd import removed_working_directory
 
 torch.set_num_threads(1)
 jax.config.update("jax_enable_x64", True)
 
 RTOL = 1e-10
+ADAM_RTOL = 1e-15
+REPO = Path(__file__).resolve().parent.parent
 
 
 @jax.jit
@@ -136,25 +145,135 @@ def test_mlmc_gradient_matches_mlmc_tpu():
         np.testing.assert_allclose(out_t[k], np.asarray(out_j[k]), rtol=RTOL, err_msg=k)
 
 
-def test_optimize_expectation_and_cvar_match_mlmc_tpu():
-    """Five Adam steps: optax.adam(0.05) against torch.optim.Adam with the
-    same constants; and three steps of the joint CVaR program."""
+OPT_N_PER, OPT_THETA0 = [256, 128], np.array([0.5, 0.3])
+OPT_KEYS = {"expectation": ("theta", "values", "grad_norms"),
+            "cvar": ("theta", "t", "cvar", "values", "grad_norms")}
+
+
+def _optimize(which, risk, obj, theta0, **kw):
+    """Five Adam steps of ``optimize_expectation`` or three of the joint
+    CVaR program, in either package."""
+    if which == "expectation":
+        return risk.optimize_expectation(obj, theta0, 2, OPT_N_PER, n_steps=5, **kw)
+    return risk.optimize_cvar(obj, theta0, 0.8, 2, OPT_N_PER, n_steps=3,
+                              smoothing=0.1, t0_init=0.5, **kw)
+
+
+def _optimize_jax(which):
     from mlmc_tpu import risk as jr
 
-    n_per = [256, 128]
-    theta0 = np.array([0.5, 0.3])
-    out_j = jr.optimize_expectation(_obj(_jax_draw, _jax_ones), jnp.asarray(theta0),
-                                    2, n_per, n_steps=5)
-    tables = _grad_tables(2, range(1, 6), n_per)
-    obj_t = _obj(lambda k: tables[k.level][k.indices], _torch_ones)
-    out_t = tr.optimize_expectation(obj_t, theta0, 2, n_per, n_steps=5, device="cpu")
-    for k in ("theta", "values", "grad_norms"):
+    return _optimize(which, jr, _obj(_jax_draw, _jax_ones), jnp.asarray(OPT_THETA0))
+
+
+def _torch_opt_obj():
+    tables = _grad_tables(2, range(1, 6), OPT_N_PER)
+    return _obj(lambda k: tables[k.level][k.indices], _torch_ones)
+
+
+def _assert_optimize_match(which, out_t, out_j):
+    for k in OPT_KEYS[which]:
         np.testing.assert_allclose(out_t[k], np.asarray(out_j[k]), rtol=RTOL, err_msg=k)
-    cv_j = jr.optimize_cvar(_obj(_jax_draw, _jax_ones), jnp.asarray(theta0), 0.8, 2,
-                            n_per, n_steps=3, smoothing=0.1, t0_init=0.5)
-    cv_t = tr.optimize_cvar(obj_t, theta0, 0.8, 2, n_per, n_steps=3, smoothing=0.1,
-                            t0_init=0.5, device="cpu")
-    np.testing.assert_allclose(cv_t["theta"], np.asarray(cv_j["theta"]), rtol=RTOL)
-    for k in ("t", "cvar", "values", "grad_norms"):
-        np.testing.assert_allclose(cv_t[k], cv_j[k], rtol=RTOL, err_msg=k)
+
+
+def test_optimize_expectation_and_cvar_match_mlmc_tpu():
+    """Five Adam steps: optax.adam(0.05) against ``risk.adam`` (0.05); and
+    three steps of the joint CVaR program."""
+    obj_t = _torch_opt_obj()
+    for which in ("expectation", "cvar"):
+        out_t = _optimize(which, tr, obj_t, OPT_THETA0, device="cpu")
+        _assert_optimize_match(which, out_t, _optimize_jax(which))
     assert mt.optimize_cvar is tr.optimize_cvar and mt.cvar_mlmc is tr.cvar_mlmc
+
+
+@pytest.mark.parametrize("which", ["expectation", "cvar"])
+def test_optimizers_run_without_a_working_directory(which, tmp_path):
+    """The default optimizer needs no working directory, as optax does not
+    (``torch.optim``'s constructor imports ``torch._dynamo``, whose config
+    reads it): the port's call in a removed directory matches mlmc_tpu's."""
+    out_j, obj_t = _optimize_jax(which), _torch_opt_obj()
+    with removed_working_directory(tmp_path):
+        out_t = _optimize(which, tr, obj_t, OPT_THETA0, device="cpu")
+    _assert_optimize_match(which, out_t, out_j)
+
+
+def test_adam_trace_matches_optax_on_a_quadratic():
+    """200 steps of ``risk.adam(0.05)`` and ``optax.adam(0.05)`` from one
+    start on the separable quadratic sum(0.5 a p^2 - b p), float64, each
+    side forming its gradient a * p - b elementwise. Both run the same
+    float64 operations in the same order, so the traces agree bit for bit
+    but where XLA's fused elementwise code rounds a step one ulp apart:
+    over six seeds (0-5) the largest gap measured was 1.2e-16 relative
+    (seed 2, at 9 of 200 steps; the other seeds bit for bit), and
+    ADAM_RTOL = 1e-15 is about five ulps. A dense quadratic's matrix
+    product rounds differently in the two libraries and
+    would hold the test to that, not to the optimizer."""
+    import optax
+
+    rng = np.random.default_rng(3)
+    a, b, p0 = rng.uniform(0.5, 2.5, 6), rng.standard_normal(6), rng.standard_normal(6)
+
+    opt = optax.adam(0.05)
+    pj = jnp.asarray(p0)
+    state = opt.init(pj)
+    aj, bj = jnp.asarray(a), jnp.asarray(b)
+    trace_j = []
+    for _ in range(200):
+        upd, state = opt.update(aj * pj - bj, state)
+        pj = optax.apply_updates(pj, upd)
+        trace_j.append(np.asarray(pj))
+
+    pt = torch.tensor(p0)
+    at, bt = torch.tensor(a), torch.tensor(b)
+    opt_t = tr.adam(0.05)([pt])
+    assert not isinstance(opt_t, torch.optim.Optimizer)
+    trace_t = []
+    for _ in range(200):
+        pt.grad = at * pt - bt
+        opt_t.step()
+        trace_t.append(pt.numpy().copy())
+    assert pt.dtype == torch.float64 and pt.grad is not None
+    opt_t.zero_grad()
+    assert pt.grad is None
+    np.testing.assert_allclose(np.array(trace_t), np.array(trace_j), rtol=ADAM_RTOL)
+
+
+_NO_CWD_SCRIPT = r"""
+import os
+import sys
+import numpy as np
+import torch
+import mlmc_tpu_torch as mt
+from mlmc_tpu_torch import risk, sensitivity
+os.rmdir(os.getcwd())
+p = torch.zeros(3, dtype=torch.float64, requires_grad=True)
+opt = risk.adam(0.05)([p])
+(p - 1.0).pow(2).sum().backward()
+opt.step()
+assert np.allclose(p.detach().numpy(), 0.05)
+X = np.linspace(0.0, 1.0, 6)[:, None]
+gp = mt.GP(device="cpu").fit(X, np.sin(3 * X[:, 0]), n_steps=5)
+assert np.isfinite(gp.nll_trace).all()
+bo = mt.bayes_opt(lambda x: float((x ** 2).sum()), np.array([[-1.0, 1.0]]), n_init=4,
+                  n_iter=1, fit_steps=5, n_candidates=16, device="cpu")
+assert np.isfinite(bo["y_best"])
+res = sensitivity.active_subspace(lambda x: (x ** 2).sum(), 3, n_samples=64,
+                                  chunk_size=32, device="cpu")
+assert np.isfinite(res["eigvals"]).all()
+assert "torch._dynamo" not in sys.modules, "torch._dynamo was imported"
+print("no-cwd-ok")
+"""
+
+
+def test_fresh_process_without_a_working_directory_never_imports_dynamo(tmp_path):
+    """In a fresh process whose working directory is removed once the port
+    is imported (as a pytest worker's is), ``risk.adam``'s step, ``GP.fit``, ``bayes_opt`` and
+    ``active_subspace`` run and never import ``torch._dynamo`` (whose config
+    reads the working directory). Unlike the removed-directory cases above,
+    this holds whatever an earlier test imported in the pytest process."""
+    gone = tmp_path / "gone"
+    gone.mkdir()
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _NO_CWD_SCRIPT], cwd=str(gone),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "no-cwd-ok" in proc.stdout

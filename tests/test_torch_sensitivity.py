@@ -6,6 +6,8 @@ so do the indices; ``sobol_indices_mlmc`` agrees on two levels;
 ``active_subspace`` agrees on replayed draws. The port's own runs meet the
 Ishigami closed forms, and a non-finite model value raises.
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 from mlmc_tpu_torch import sensitivity as ts
+from torch_cwd import removed_working_directory
 
 torch.set_num_threads(1)
 jax.config.update("jax_enable_x64", True)
@@ -110,7 +113,9 @@ def test_mlmc_indices_match_mlmc_tpu_on_two_levels(monkeypatch):
     assert list(res_t.n) == list(res_j.n) and res_t.n_evaluations == res_j.n_evaluations
 
 
-def test_active_subspace_matches_mlmc_tpu_on_replayed_draws():
+def _active_subspace_pair(context):
+    """mlmc_tpu's active subspace and the port's on JAX's draws, the port's
+    run inside ``context``; held to each other."""
     from mlmc_tpu import sensitivity as js
 
     dim, chunk = 4, 128
@@ -124,9 +129,10 @@ def test_active_subspace_matches_mlmc_tpu_on_replayed_draws():
                                           jnp.float64)) for c in range(3)]
     res_j = js.active_subspace(fj, dim, n_samples=3 * chunk, key=key, chunk_size=chunk,
                                dtype=jnp.float64)
-    res_t = ts.active_subspace(ft, dim, n_samples=3 * chunk, chunk_size=chunk,
-                               sampler=lambda keys, n: draws[keys.level].copy(),
-                               dtype=torch.float64, device="cpu")
+    with context:
+        res_t = ts.active_subspace(ft, dim, n_samples=3 * chunk, chunk_size=chunk,
+                                   sampler=lambda keys, n: draws[keys.level].copy(),
+                                   dtype=torch.float64, device="cpu")
     np.testing.assert_allclose(res_t["C"], res_j["C"], rtol=1e-12, atol=1e-15)
     np.testing.assert_allclose(res_t["eigvals"], res_j["eigvals"], rtol=1e-10, atol=1e-14)
     np.testing.assert_allclose(np.abs(res_t["W"][:, 0]), np.abs(res_j["W"][:, 0]),
@@ -134,6 +140,17 @@ def test_active_subspace_matches_mlmc_tpu_on_replayed_draws():
     np.testing.assert_allclose(res_t["subspace_dist"], res_j["subspace_dist"],
                                rtol=1e-8, atol=1e-12)
     assert res_t["n_samples"] == res_j["n_samples"] == 3 * chunk
+
+
+def test_active_subspace_matches_mlmc_tpu_on_replayed_draws():
+    _active_subspace_pair(contextlib.nullcontext())
+
+
+def test_active_subspace_runs_without_a_working_directory(tmp_path):
+    """The per-sample gradients need no working directory, as ``jax.grad``
+    does not (``torch.func.grad`` imports ``torch._dynamo``, whose config
+    reads it)."""
+    _active_subspace_pair(removed_working_directory(tmp_path))
 
 
 def test_ishigami_meets_its_closed_forms_and_active_direction():
