@@ -10,9 +10,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
 3. the storage-free path, with the launch counters reset just before it:
    the 5-level synthetic estimate at 1e8 samples and 25 Legendre moments
    in one kernel A launch, the f32-vs-f64 precision guard (memory mode,
-   1e7 samples), the normal-stream quality check (kernel B, 1e7 normals),
-   the maxent density, and a short adaptive FusedMLMC run on the card;
-   fails unless kernels A and B were launched;
+   1e7 samples), the normal-stream quality check (kernel B, 1e7 normals:
+   mean, variance, KS test, and the KS test of each of the four slots of a
+   Philox call), the maxent density, and a short adaptive FusedMLMC run on
+   the card; fails unless kernels A and B were launched; then kernel A at
+   the headline and at levels that start inside a quad, and kernel B from
+   aligned and misaligned first indices, against their plain versions (B
+   bit for bit);
 4. the stored-samples path (Sampler -> DeviceBatchPool -> DeviceMemory ->
    Quantity -> Estimate), with the counters reset just before it:
    a. the adaptive loop to target_var=2e-8 (5 levels, 25 Legendre moments,
@@ -217,7 +221,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    each kernel's bound from this run's inputs (kernel A also in memory
    mode, at the precision guard's launch); kernels C and D and their plain
    versions also at their largest launch, the structured tier's 12 x 5
-   streams; kernel B's library time is torch.randn's at its 1e7 normals.
+   streams; kernel B's library time is torch.randn's at its 1e7 normals;
+   kernel B and torch.randn are also timed queued, the device alone
+   (tool/timing.py: "device_ms", "library_device_ms"); kernel B's bound
+   counts per Philox call (four normals) the integer-pipe and f32-pipe
+   instructions of one turn of its loop in its SASS, on the path that
+   issues the fewest (tool/kernel_sass.py), and 16 bytes written; kernels A's and B's registers and local loads and
+   stores are read from their SASS.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout. The last line is {"ok": true, "device": {...}}; the line before
@@ -272,7 +282,14 @@ SHARDED_ML2R_TARGET = 4e-7
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOP_PER_S = 67e12
 INT32_LANES_PER_SM = 64
-PHILOX_INT32_OPS = 104     # 10 rounds x (4 multiplies, 4 xors, 2 key adds) + counter
+ISSUE_LANES_PER_SM = 128   # 4 schedulers x one 32-thread instruction per clock
+#: kernel B from misaligned first indices: inside the first quad, and across
+#: the high word of the Philox call number (the call 2^32 holds index 2^34)
+B_STARTS = (77, (1 << 34) - 5)
+#: kernel A in RNG mode from levels that start inside a quad (as a shard of
+#: a sample mesh may): the per-level first indices and counts
+A_STARTS = [1, 2, 3, 77, 1 << 20 | 1]
+A_STARTS_N = [(1 << 20) + 3, 1 << 18, (1 << 16) + 7, 99_999, 4_097]
 
 
 def _fail(msg):
@@ -293,19 +310,11 @@ def _smi(query):
 
 
 def _time_ms(torch, fn, reps=5):
-    """Median over ``reps`` warm calls, timed with CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    """Median over ``reps`` warm single calls, each between two CUDA
+    events (tool/timing.event_ms)."""
+    from mlmc_tpu_torch.tool.timing import event_ms
+
+    return event_ms(fn, reps)
 
 
 def _bound(bytes_moved, ops, ops_per_s):
@@ -492,8 +501,12 @@ def storage_free_path(torch, dev):
         _require(abs(mean_z) < 5 / np.sqrt(N_NORMALS), "normal mean %.3g" % mean_z)
         _require(abs(var_z - 1) < 5 * np.sqrt(2 / N_NORMALS), "normal variance %.6g" % var_z)
         _require(ks.pvalue > 1e-3, "KS p-value %.3g" % ks.pvalue)
-        print("normals: mean %.3g, variance %.6f, KS p-value %.3g over %d"
-              % (mean_z, var_z, ks.pvalue, N_NORMALS))
+        # the four slots of a Philox call (both branches of two pairs)
+        slot_p = [st.kstest(zq[j::4].cpu().numpy(), "norm").pvalue for j in range(4)]
+        _require(min(slot_p) > 1e-3, "KS p-value per slot %s" % slot_p)
+        print("normals: mean %.3g, variance %.6f, KS p-value %.3g over %d; per slot of "
+              "a Philox call %s" % (mean_z, var_z, ks.pvalue, N_NORMALS,
+                                    ["%.3g" % p for p in slot_p]))
 
         # maxent density from the headline estimate
         t0 = time.perf_counter()
@@ -544,9 +557,33 @@ def storage_free_path(torch, dev):
               "|kernel-plain| %.3g, / S_abs %.3g (tol 1e-12)" % (err_a, rel_a))
         err_b = float((z - ck.philox_normals(SEED + 1, 0, 0, N_NORMALS,
                                              device=dev)).abs().max())
-        _require(err_b <= 1e-5, "normals |kernel - plain| = %.3g > 1e-5" % err_b)
-        print("kernel B at the path's 1e7 normals vs plain: max |dz| %.3g "
-              "(tol 1e-5)" % err_b)
+        _require(err_b == 0, "normals |kernel - plain| = %.3g != 0" % err_b)
+        for start in B_STARTS:
+            zs = ck.synth_normals(SEED + 1, N_NORMALS, level=3, start=start, device=dev)
+            dz = float((zs - ck.philox_normals(SEED + 1, 3, start, N_NORMALS,
+                                               device=dev)).abs().max())
+            _require(dz == 0, "normals from %d: |kernel - plain| = %.3g != 0"
+                     % (start, dz))
+        print("kernel B at the path's 1e7 normals vs plain: max |dz| %.3g, and from "
+              "first indices %s: 0 (tol 0, bit for bit)" % (err_b, list(B_STARTS)))
+        # kernel A's RNG mode from levels that start inside a quad
+        lv = len(A_STARTS_N)
+        got = ck.synth_mlmc_pipeline(SEED, N_MOMENTS, A_STARTS_N, LEVEL_STEPS[:lv],
+                                     domain=DOMAIN, device=dev, starts=A_STARTS)
+        again = ck.synth_mlmc_pipeline(SEED, N_MOMENTS, A_STARTS_N, LEVEL_STEPS[:lv],
+                                       domain=DOMAIN, device=dev, starts=A_STARTS)
+        _require(all(torch.equal(a, b) for ga, gb in zip(got, again)
+                     for a, b in zip(ga, gb)), "kernel A: two launches differ")
+        plain_s, s_abs_s = (ck.synth_mlmc_plain(
+            None, SEED, A_STARTS_N, *ck._ladder(LEVEL_STEPS[:lv]), N_MOMENTS,
+            domain=DOMAIN, device=dev, absolute=a, starts=A_STARTS) for a in (False, True))
+        got = ck.SynthMomentResult(*(torch.stack([getattr(a, f) for a in got])
+                                     for f in ck.SynthMomentResult._fields))
+        err_s, rel_s = _compare(torch, got, plain_s, s_abs_s, "levels from %s" % A_STARTS)
+        err_a = max(err_a, err_s)
+        print("kernel A from first indices %s (counts %s) vs plain: n_valid equal, max "
+              "|kernel-plain| / S_abs %.3g (tol 1e-12); two launches bit for bit"
+              % (A_STARTS, A_STARTS_N, rel_s))
 
     # ---- times and bounds at the path's shapes ------------------------ #
     a_ms = _time_ms(torch, lambda: ck.synth_mlmc_pipeline(
@@ -554,14 +591,27 @@ def storage_free_path(torch, dev):
     a_plain_ms = _time_ms(torch, lambda: ck.synth_mlmc_plain(
         None, SEED, N_PER_LEVEL, fine, coarse, has_coarse, N_MOMENTS,
         domain=DOMAIN, device=dev), reps=3)
-    b_ms = _time_ms(torch, lambda: ck.synth_normals(SEED + 1, N_NORMALS, device=dev))
+    # kernel B's call is a few tens of microseconds of device time, no more
+    # than the host's launch path, which single calls between two events
+    # hold: its calls (and torch.randn's) are also queued behind a spin
+    # kernel and timed back to back, the device alone
+    from mlmc_tpu_torch.tool.timing import queued_ms
+
+    def b_call():
+        return ck.synth_normals(SEED + 1, N_NORMALS, device=dev)
+
+    b_ms, b_device_ms = _time_ms(torch, b_call), queued_ms(b_call)
     b_plain_ms = _time_ms(torch, lambda: ck.philox_normals(SEED + 1, 0, 0, N_NORMALS,
                                                            device=dev))
     # the library call drawing the same law (standard normals, float32) from
     # torch's own Philox stream; timed here only, the port never calls it
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1)
-    b_lib_ms = _time_ms(torch, lambda: torch.randn(N_NORMALS, device=dev, generator=gen))
+
+    def lib_call():
+        return torch.randn(N_NORMALS, device=dev, generator=gen)
+
+    b_lib_ms, b_lib_device_ms = _time_ms(torch, lib_call), queued_ms(lib_call)
     a_fma = sum(n * _fma_per_sample(N_MOMENTS, h) for n, h in zip(n_valid, has_coarse))
     a_bound = _bound(5 * (2 * N_MOMENTS + 2 * N_MOMENTS ** 2 + 1) * 8, 2 * a_fma,
                      FP64_FLOP_PER_S)
@@ -581,14 +631,41 @@ def storage_free_path(torch, dev):
           % (N_PRECISION, m_ms, m_plain_ms, m_bound[0], m_bound[1]))
     sm_mhz = float(_smi("clocks.max.sm").split()[0])
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    b_bound = _bound(4 * N_NORMALS, PHILOX_INT32_OPS * N_NORMALS,
-                     n_sm * INT32_LANES_PER_SM * sm_mhz * 1e6)
+    # kernel B: per Philox call (four normals), the instructions of one turn
+    # of its loop in its SASS on the path that issues the fewest (the vector
+    # store; no trig slow path, no special-case call): the integer-pipe ones
+    # on 64 lanes per SM, and those with the f32-pipe ones issued at 128 per
+    # SM per clock; 16 bytes written
+    from mlmc_tpu_torch.ops import _build
+    from mlmc_tpu_torch.tool import kernel_sass
+
+    sass = kernel_sass.summary(_build.library_path("synth_mlmc"))
+    _require(sorted(sass) == ["A NB=1", "A NB=2", "A NB=3", "A NB=4", "B"],
+             "SASS: expected kernel A x 4 and kernel B, found %s" % sorted(sass))
+    b_int, b_f32 = sass["B"]["LOOP_INT"], sass["B"]["LOOP_F32"]
+    _require(b_int > 0 and b_f32 > 0, "SASS: kernel B's loop not found: %s" % sass["B"])
+    b_calls = -(-N_NORMALS // 4)
+    t_int = b_int * b_calls / (n_sm * INT32_LANES_PER_SM * sm_mhz * 1e6)
+    t_issue = (b_int + b_f32) * b_calls / (n_sm * ISSUE_LANES_PER_SM * sm_mhz * 1e6)
+    b_bound = _bound(4 * N_NORMALS, max(t_int, t_issue), 1.0)
+    print("SASS (tool/kernel_sass.py): %s" % json.dumps(sass))
     print("times (CUDA events, median): kernel A %.3f ms vs plain %.3f ms at 1e8 "
           "samples (5 levels, R=25, RNG mode; bound %.3f ms, %s: %.4g f64 FMAs); "
-          "kernel B %.3f ms vs plain %.3f ms vs torch.randn %.3f ms at 1e7 normals "
-          "(bound %.4f ms, %s: %d SMs x %d int32 lanes at %.0f MHz)"
-          % (a_ms, a_plain_ms, a_bound[0], a_bound[1], a_fma, b_ms, b_plain_ms, b_lib_ms,
-             b_bound[0], b_bound[1], n_sm, INT32_LANES_PER_SM, sm_mhz))
+          "kernel B %.4f ms (single calls; %.4f ms queued, the device alone) vs plain "
+          "%.3f ms vs torch.randn %.4f ms (single calls; %.4f ms queued) at 1e7 "
+          "normals (bound %.4f ms, %s: %d Philox calls; int32 %.4f ms for %d "
+          "integer-pipe instructions a call on %d SMs x %d lanes at %.0f MHz; issue "
+          "%.4f ms for %d + %d f32-pipe instructions a call at %d a clock per SM; "
+          "bytes %.4f ms)"
+          % (a_ms, a_plain_ms, a_bound[0], a_bound[1], a_fma, b_ms, b_device_ms,
+             b_plain_ms, b_lib_ms, b_lib_device_ms, b_bound[0], b_bound[1], b_calls,
+             t_int * 1e3, b_int, n_sm, INT32_LANES_PER_SM, sm_mhz, t_issue * 1e3,
+             b_int, b_f32, ISSUE_LANES_PER_SM, 4 * N_NORMALS / HBM_BYTES_PER_S * 1e3))
+    a_extra = {"sass": {k: v for k, v in sass.items() if k != "B"}}
+    b_extra = {"device_ms": b_device_ms, "library_device_ms": b_lib_device_ms,
+               "sass": sass["B"], "bound_parts_ms": {
+                   "int32": t_int * 1e3, "issue": t_issue * 1e3,
+                   "bytes": 4 * N_NORMALS / HBM_BYTES_PER_S * 1e3}}
     return [
         {"name": "synth_mlmc", "route": "cuda",
          "source": "mlmc_tpu_torch/csrc/synth_mlmc.cu",
@@ -597,13 +674,13 @@ def storage_free_path(torch, dev):
          "ms": a_ms, "plain_ms": a_plain_ms, "bound_ms": a_bound[0],
          "bound_by": a_bound[1], "library_ms": None,
          "memory_mode": {"samples": N_PRECISION, "ms": m_ms, "plain_ms": m_plain_ms,
-                         "bound_ms": m_bound[0], "bound_by": m_bound[1]}},
+                         "bound_ms": m_bound[0], "bound_by": m_bound[1]}, **a_extra},
         {"name": "normals_dump", "route": "cuda",
          "source": "mlmc_tpu_torch/csrc/synth_mlmc.cu",
          "replaces": "mlmc_tpu/ops/pallas_kernels.py:1013",
          "launches": counts["normals_dump"], "max_abs_err": err_b,
          "ms": b_ms, "plain_ms": b_plain_ms, "bound_ms": b_bound[0],
-         "bound_by": b_bound[1], "library_ms": b_lib_ms},
+         "bound_by": b_bound[1], "library_ms": b_lib_ms, **b_extra},
     ]
 
 

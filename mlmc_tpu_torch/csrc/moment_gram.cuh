@@ -37,7 +37,9 @@
 //   parameter, so the tile loops unroll and the accumulators stay in
 //   registers; one code path serves every R in 1..32.
 // * Work split: the 4 warps of a block take interleaved 32-sample chunks of
-//   the block's span. A lane builds one sample's fine and coarse rows in
+//   the block's span (an Order of block_span; kernel A's RNG mode gives
+//   each lane four consecutive samples in four chunks, csrc/synth_mlmc.cu
+//   SynthOrder). A lane builds one sample's fine and coarse rows in
 //   lockstep (two independent recurrences) into its warp's private rows
 //   (stride 36 doubles = 4 mod 16: the operand loads and the row stores are
 //   bank-conflict free), __syncwarp, then 4 k-steps. The next chunk's input
@@ -358,20 +360,34 @@ __device__ __forceinline__ int tile_index(int nb, int P, int J) {
   return P * nb - P * (P - 1) + (J - 2 * P);
 }
 
-// One block's span of `count` samples of one level or stream. The warps
-// take interleaved 32-sample chunks. `rows` has two calls: `rows.fetch(s,
-// in_range)` reads or draws sample s's input (issued one chunk ahead, so
-// that its latency overlaps the tiles of the chunk before), and
-// `rows.build(x, in_range, row_f, row_c, Flag<HC>)` builds its rows into
-// the lane's column and returns whether it is valid. Writes the block's
-// partial row `out` (n_out(n_codes) doubles; coarse entries only where HC)
-// and its valid count.
-template <int NB, bool HC, typename Rows>
+// The order in which a warp's lanes visit a span's samples: chunk k of
+// warp w takes sample slot (k kWarps + w) kChunk + lane, and runs while
+// its first slot is in the span (kernels C and D, kernel A's memory mode).
+struct Interleaved {
+  __device__ __forceinline__ int64_t slot(int64_t k, int warp, int lane) const {
+    return (k * kWarps + warp) * kChunk + lane;
+  }
+  __device__ __forceinline__ bool runs(int64_t k, int warp, int64_t count) const {
+    return (k * kWarps + warp) * kChunk < count;
+  }
+};
+
+// One block's span of `count` samples of one level or stream, visited in
+// `order`'s chunks (slot(k, warp, lane): the sample slot, which may lie
+// outside [0, count); runs(k, warp, count): whether chunk k runs). `rows`
+// has two calls: `rows.fetch(s, in_range)` reads or draws sample slot s's
+// input (issued one chunk ahead, so that its latency overlaps the tiles
+// of the chunk before), and `rows.build(x, in_range, row_f, row_c,
+// Flag<HC>)` builds its rows into the lane's column and returns whether it
+// is valid. Writes the block's partial row `out` (n_out(n_codes) doubles;
+// coarse entries only where HC) and its valid count.
+template <int NB, bool HC, typename Rows, typename Order = Interleaved>
 __device__ __forceinline__ void block_span(int64_t count, int R,
                                            const int32_t* __restrict__ codes,
                                            int n_codes, const Rows& rows,
                                            double* __restrict__ out,
-                                           long long* __restrict__ out_n) {
+                                           long long* __restrict__ out_n,
+                                           const Order order = Order{}) {
   extern __shared__ double smem[];
   __shared__ int warp_counts[kWarps];
   constexpr int T = n_tiles(NB);
@@ -389,15 +405,15 @@ __device__ __forceinline__ void block_span(int64_t count, int R,
   g.init();
   int n_valid = 0;
   int since_flush = 0;
-  int64_t s = static_cast<int64_t>(warp) * kChunk + lane;
-  auto x = rows.fetch(s, s < count, Flag<HC>{});
-  for (int64_t c0 = static_cast<int64_t>(warp) * kChunk; c0 < count;
-       c0 += kWarps * kChunk) {
+  int64_t s = order.slot(0, warp, lane);
+  auto x = rows.fetch(s, s >= 0 && s < count, Flag<HC>{});
+  for (int64_t k = 0; order.runs(k, warp, count); ++k) {
     __syncwarp();  // the previous chunk's operand loads are done
-    if (rows.build(x, s < count, rf + lane, rc + lane, Flag<HC>{})) ++n_valid;
+    if (rows.build(x, s >= 0 && s < count, rf + lane, rc + lane, Flag<HC>{}))
+      ++n_valid;
     __syncwarp();
-    s += kWarps * kChunk;
-    x = rows.fetch(s, s < count, Flag<HC>{});
+    s = order.slot(k + 1, warp, lane);
+    x = rows.fetch(s, s >= 0 && s < count, Flag<HC>{});
     g.chunk(rf, rc, R, lane);
     if (++since_flush == kFlushChunks) {
       g.flush(tot, lane);

@@ -4,7 +4,10 @@
 // kernels _synth_mlmc_kernel, _synth_moment_kernel and
 // _synth_moment_kernel_noise (mlmc_tpu/ops/pallas_kernels.py:605, :248,
 // :270). Kernel B (normals_dump_kernel) replaces _normals_dump_kernel
-// (:1013). Both share one Philox4x32-10 + Box-Muller device function.
+// (:1013). Both draw from one stream (normal_quad): sample i of a level is
+// slot i & 3 of Philox4x32-10 call i >> 2, whose four words give four
+// normals by both branches of Box-Muller on two word pairs
+// (ops/cuda_kernels.py states the counter and the bit map).
 //
 // Per sample, kernel A draws x (or reads it from memory), evaluates the
 // fine/coarse QoI x + h*sqrt(1e-4 + |x|), maps both onto [-1, 1], decides
@@ -17,8 +20,9 @@
 //
 // Bound on the card: nothing is read from device memory in RNG mode, so the
 // kernel is compute-bound: ~R^2 f64 multiply-adds per sample of a coarse
-// level (half on level 0), plus per sample one Philox4x32-10, Box-Muller's
-// f32 log/sqrt/cos and 2(R - 2) correctly rounded f32 divisions in the
+// level (half on level 0), plus per sample a quarter of a Philox4x32-10
+// call, half a Box-Muller pair (f32 log, sqrt, sin and cos) and 2(R - 2)
+// correctly rounded f32 divisions in the
 // recurrences (a reciprocal multiplication and two fused corrections,
 // gram::div_small). The Grams run on the FP64 tensor cores with
 // register-level operand reuse
@@ -27,8 +31,16 @@
 // (mlmc_tpu_torch/tool/gram_ablation.py, PERF.md): the recurrences' long
 // dependent chains, the DMMA issue, and the RNG, which overlap little at the
 // 8 warps per SM that the registers and shared memory allow. A lane builds
-// one sample per 32-sample chunk, fine and coarse in lockstep, and draws
-// the next chunk's sample before the tiles run; level 0 (no coarse part,
+// one sample per 32-sample chunk, fine and coarse in lockstep, and fetches
+// the next chunk's sample before the tiles run. In RNG mode a warp's four
+// consecutive chunks take the 128 consecutive samples of 32 quads, lane l
+// the four slots of quad l (SynthOrder): the lane draws one Philox call on
+// the first of the four chunks, keeps the other three normals in its own
+// shared-memory slot (no registers held across the tiles, which run at the
+// 255-register limit at R = 25), and the warp skips the call on the other
+// three. A span whose first index is not a multiple of 4 starts and ends
+// inside a quad; its head and tail slots outside the span are drawn and
+// masked, and the neighbouring span builds them. Level 0 (no coarse part,
 // 64% of the headline's samples) builds one row and runs the fine Gram
 // only. One block per 2^16-sample span of a level, the blocks of levels
 // with a coarse part first; a second pass reduces each level's block
@@ -73,20 +85,32 @@ __device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0,
   }
 }
 
-// Standard normal of (seed, level, index): one Philox call, words 0 and 1
-// feed Box-Muller exactly as mlmc_tpu's _normal_pair maps its bits (top 24
-// bits, u1 offset by half an ulp), cosine branch only.
-__device__ __forceinline__ float normal_at(uint64_t index, uint32_t level,
-                                           uint32_t k0, uint32_t k1) {
-  uint32_t c[4] = {static_cast<uint32_t>(index),
-                   static_cast<uint32_t>(index >> 32), level, 0u};
-  philox4x32_10(c, k0, k1);
-  const float i1 = static_cast<float>(static_cast<int>(c[0] >> 8));
-  const float i2 = static_cast<float>(static_cast<int>(c[1] >> 8));
+// Both Box-Muller branches of a word pair, mapped as mlmc_tpu's
+// _normal_pair maps its bits (top 24 bits, u1 offset by half an ulp):
+// (r cos, r sin) in f32. logf, sinf and cosf are the functions PyTorch's
+// CUDA log, sin and cos call, and sqrtf is correctly rounded, so the
+// plain version on the card gives the same bits.
+__device__ __forceinline__ float2 box_muller(uint32_t w0, uint32_t w1) {
+  const float i1 = static_cast<float>(static_cast<int>(w0 >> 8));
+  const float i2 = static_cast<float>(static_cast<int>(w1 >> 8));
   const float u1 = i1 * 5.9604644775390625e-08f + 2.98023223876953125e-08f;
   const float u2 = i2 * 5.9604644775390625e-08f;
   const float r = sqrtf(-2.0f * logf(u1));
-  return r * cosf(6.28318548202514648f * u2);
+  const float angle = 6.28318548202514648f * u2;
+  return make_float2(r * cosf(angle), r * sinf(angle));
+}
+
+// The four normals of Philox call q of a level: counter (q low word, q
+// high word, level, 0); slots 0, 1 from words (0, 1), slots 2, 3 from
+// words (2, 3), cosine branch first.
+__device__ __forceinline__ float4 normal_quad(uint64_t q, uint32_t level,
+                                              uint32_t k0, uint32_t k1) {
+  uint32_t c[4] = {static_cast<uint32_t>(q), static_cast<uint32_t>(q >> 32),
+                   level, 0u};
+  philox4x32_10(c, k0, k1);
+  const float2 a = box_muller(c[0], c[1]);
+  const float2 b = box_muller(c[2], c[3]);
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 // has_coarse of a level: column 2 of the level table
@@ -94,6 +118,37 @@ struct LevelCoarse {
   const float* lvl;
   __device__ bool operator()(int level) const { return lvl[3 * level + 2] != 0.0f; }
 };
+
+// Kernel A's sample order (gram::block_span): the interleaved chunks of
+// kernels C and D in memory mode; quads in RNG mode. There slot s of the
+// span is sample start + s, and with head = start & 3, chunk k of warp w
+// takes quad t = ((k >> 2) kWarps + w) kChunk + lane of the span (counted
+// from the quad boundary at or below start), slot k & 3 of it: s = 4t +
+// (k & 3) - head. Chunks run in fours while their first quad is in the
+// span.
+struct SynthOrder {
+  bool quads;       // RNG mode
+  int head;         // start & 3
+  int64_t n_quads;  // quads that hold the span's samples
+
+  __device__ __forceinline__ int64_t slot(int64_t k, int warp, int lane) const {
+    if (!quads) return gram::Interleaved{}.slot(k, warp, lane);
+    const int64_t t = ((k >> 2) * gram::kWarps + warp) * gram::kChunk + lane;
+    return 4 * t + (k & 3) - head;
+  }
+  __device__ __forceinline__ bool runs(int64_t k, int warp, int64_t count) const {
+    if (!quads) return gram::Interleaved{}.runs(k, warp, count);
+    return ((k >> 2) * gram::kWarps + warp) * gram::kChunk < n_quads;
+  }
+};
+
+// RNG mode: the calling lane's slot of the block's shared memory, which
+// holds the four normals of its current quad (indexed by threadIdx.x, so no
+// pointer is carried through the loop)
+__device__ __forceinline__ float* quad_slot() {
+  __shared__ float4 quads[gram::kThreads];
+  return reinterpret_cast<float*>(quads + threadIdx.x);
+}
 
 // Per-sample input and rows of kernel A (see gram::block_span)
 struct SynthRows {
@@ -104,11 +159,19 @@ struct SynthRows {
   float fine_step, coarse_step, t_scale, t_shift;
   int R;
 
+  // RNG mode visits slots in SynthOrder's quads: slot 0 of a quad draws its
+  // call (drawn and discarded where it lies outside the span), slots 1-3
+  // read the normals it left in the lane's quad_slot
   template <typename HCF>
   __device__ __forceinline__ float fetch(int64_t s, bool in_range, HCF) const {
-    if (!in_range) return 0.0f;
-    return x != nullptr ? x[xoff + s]
-                        : normal_at(static_cast<uint64_t>(start + s), level, k0, k1);
+    if (x != nullptr) return in_range ? x[xoff + s] : 0.0f;
+    const uint64_t i = static_cast<uint64_t>(start + s);
+    if ((i & 3) == 0) {
+      const float4 z = normal_quad(i >> 2, level, k0, k1);
+      *reinterpret_cast<float4*>(quad_slot()) = z;
+      return z.x;
+    }
+    return quad_slot()[i & 3];
   }
 
   template <typename HCF>
@@ -156,13 +219,15 @@ synth_mlmc_kernel(const float* __restrict__ x, const int64_t* __restrict__ blk,
   const SynthRows rows{x, b[1], b[3], static_cast<uint32_t>(level), k0, k1,
                        lvl[3 * level + 0], lvl[3 * level + 1], t_scale,
                        t_shift, n_moments};
+  const int head = static_cast<int>(b[1] & 3);
+  const SynthOrder order{x == nullptr, head, count > 0 ? (count + head + 3) >> 2 : 0};
   double* out = partial + static_cast<int64_t>(blockIdx.x) * gram::n_out(n_codes);
   if (lvl[3 * level + 2] != 0.0f) {
     gram::block_span<NB, true>(count, n_moments, codes, n_codes, rows, out,
-                               partial_n + blockIdx.x);
+                               partial_n + blockIdx.x, order);
   } else {
     gram::block_span<NB, false>(count, n_moments, codes, n_codes, rows, out,
-                                partial_n + blockIdx.x);
+                                partial_n + blockIdx.x, order);
   }
 }
 
@@ -183,13 +248,41 @@ cudaError_t launch_synth(const float* x, const int64_t* blk, int n_blocks,
   return cudaGetLastError();
 }
 
-__global__ void normals_dump_kernel(float* __restrict__ out, int64_t n,
-                                    int64_t start, uint32_t level,
-                                    uint32_t k0, uint32_t k1) {
+// Kernel B. Bound on the card: per 4 normals one Philox call (~104 int32
+// operations at half the f32 issue rate), two f32 log/sqrt and two sin/cos
+// evaluations, and 16 bytes written; nothing is read. Thread t of a
+// grid-stride loop draws quad q0 + t of [start, start + n) and writes it
+// with one 16-byte store where the quad lies whole in the range and its
+// first slot is 16-byte aligned (the wrapper offsets the buffer by start & 3
+// floats so that every whole quad is); the head and tail quads of a range
+// that starts or ends inside a quad store their slots one by one. The grid
+// is capped at kNormalsBlocksPerSm blocks per SM
+// (mlmc_tpu_torch/tool/gram_ablation.py --kernel b times the caps). One
+// draw site keeps the SASS's f32 count, which the bound reads, per call.
+constexpr int kNormalsThreads = 256;
+constexpr int kNormalsBlocksPerSm = 16;
+
+__global__ void __launch_bounds__(kNormalsThreads)
+normals_dump_kernel(float* __restrict__ out, int64_t n, int64_t start,
+                    uint32_t level, uint32_t k0, uint32_t k1) {
+  const int head = static_cast<int>(start & 3);
+  const uint64_t q0 = static_cast<uint64_t>(start) >> 2;
+  const int64_t n_quads = (n + head + 3) >> 2;
+  const bool vec = ((reinterpret_cast<uintptr_t>(out) - 4u * head) & 15u) == 0;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    out[i] = normal_at(static_cast<uint64_t>(start + i), level, k0, k1);
+  for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       t < n_quads; t += stride) {
+    const float4 z = normal_quad(q0 + t, level, k0, k1);
+    const int64_t o = 4 * t - head;  // where the quad's slot 0 goes
+    if (vec && o >= 0 && o + 4 <= n) {
+      *reinterpret_cast<float4*>(out + o) = z;
+    } else {
+      const float v[4] = {z.x, z.y, z.z, z.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (o + j >= 0 && o + j < n) out[o + j] = v[j];
+      }
+    }
   }
 }
 
@@ -231,10 +324,18 @@ int normals_dump_launch(float* out, long long n, long long start,
                         uint32_t level, uint32_t k0, uint32_t k1,
                         void* stream) {
   if (n <= 0) return 0;
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  normals_dump_kernel<<<static_cast<int>(blocks), threads, 0,
+  if (start < 0) return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0;
+  int n_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n_quads = (n + (start & 3) + 3) / 4;
+  long long blocks = (n_quads + kNormalsThreads - 1) / kNormalsThreads;
+  const long long cap = static_cast<long long>(n_sm) * kNormalsBlocksPerSm;
+  if (blocks > cap) blocks = cap;
+  normals_dump_kernel<<<static_cast<int>(blocks), kNormalsThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(out, n, start,
                                                              level, k0, k1);
   return static_cast<int>(cudaGetLastError());

@@ -68,6 +68,11 @@ def find_nvcc():
     return found
 
 
+def nvcc_command(source, target):
+    """The ``nvcc`` command line that builds ``source`` into ``target``."""
+    return [find_nvcc(), *NVCC_FLAGS, "-o", str(target), str(source)]
+
+
 def library_path(name):
     """Where the library of ``csrc/<name>.cu`` is built for this source,
     the headers it may include (every ``csrc/*.cuh``) and these flags."""
@@ -89,7 +94,6 @@ def build_all(names=None):
     if not todo:
         return targets
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = find_nvcc()
     procs = {}
     try:
         for name in todo:
@@ -99,7 +103,7 @@ def build_all(names=None):
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             procs[name] = (tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE_DIR / (name + ".cu"))],
+                nvcc_command(SOURCE_DIR / (name + ".cu"), tmp),
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         errors = []
         for name, (tmp, proc) in procs.items():

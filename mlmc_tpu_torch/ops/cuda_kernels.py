@@ -28,13 +28,25 @@ level) stream in one launch, with the transform t = (x - a)·scale + ref_lo
 and Legendre, monomial or Fourier rows in f32, as ``_samples_mlmc_kernel``
 does. Its f64 twin, kernel D, lives in ``ops/cuda_extended.py``.
 
-Random numbers: sample ``i`` of level ``l`` under ``seed`` is the normal
-from one Philox4x32-10 call with key (seed low word, seed high word) and
-counter (i low word, i high word, l, 0); words 0 and 1 feed Box-Muller with
-the bit map of ``_normal_pair`` (top 24 bits, u1 offset by half an ulp),
-cosine branch. The plain version (``philox_normals``) maps indices to
-normals the same way, so the kernel and the plain version draw the same
-samples up to the last bits of the f32 transcendentals.
+Random numbers: sample ``i`` of level ``l`` under ``seed`` is slot
+``j = i & 3`` of Philox4x32-10 call ``q = i >> 2``, with key (seed low
+word, seed high word) and counter (q low word, q high word, l, 0). Its
+words w0..w3 feed Box-Muller with the bit map of mlmc_tpu's
+``_normal_pair`` (top 24 bits, u1 offset by half an ulp; f32 ``log``,
+``sqrt``, ``cos`` and ``sin`` of 2 pi u2): slots 0 and 1 are the cosine
+and sine branch of (w0, w1), slots 2 and 3 those of (w2, w3). One call
+gives four normals, as ``torch.randn``'s Philox does. A normal depends on
+(seed, level, index) alone, so a level cut at any index (shards, resumed
+ranges) draws the samples of the whole. The plain version
+(``philox_normals``) maps indices to normals the same way: on the card
+kernel B equals it bit for bit (the kernels use the f32 ``logf``,
+``sinf`` and ``cosf`` that PyTorch's CUDA ``log``, ``sin`` and ``cos``
+call, and a correctly rounded ``sqrtf``); on the CPU it differs in the
+last bits of the transcendentals. ``random/keyed.py`` sets bit 31 of word
+2 in every counter, so its streams never meet this one;
+``SynthSimulation.calculate_keyed_batch`` does not, and its call 0 of
+attempt 0 for sample index ``q`` is this stream's call ``q`` of the same
+level (samples 4q .. 4q + 3).
 """
 from typing import NamedTuple
 
@@ -107,12 +119,17 @@ def philox4x32_10(counter, key):
 
 
 def box_muller(bits0, bits1):
-    """Standard normals from two uint32 words, mapped as mlmc_tpu's
-    ``_normal_pair``: top 24 bits, ``u1`` offset by half an ulp; f32."""
+    """The two standard normals of a pair of uint32 words, mapped as
+    mlmc_tpu's ``_normal_pair``: top 24 bits, ``u1`` offset by half an
+    ulp; f32.
+
+    :return: (cosine branch, sine branch)
+    """
     u1 = (bits0 >> 8).to(torch.float32) * (1.0 / (1 << 24)) + (0.5 / (1 << 24))
     u2 = (bits1 >> 8).to(torch.float32) * (1.0 / (1 << 24))
     r = _sqrt_f32(-2.0 * torch.log(u1))
-    return r * torch.cos(_TWO_PI_F32 * u2)
+    angle = _TWO_PI_F32 * u2
+    return r * torch.cos(angle), r * torch.sin(angle)
 
 
 def _key_words(seed):
@@ -122,13 +139,16 @@ def _key_words(seed):
 
 def philox_normals(seed, level, start, n, *, device=None):
     """Plain version of the kernels' normal stream: normals of sample
-    indices ``start .. start + n - 1`` of ``level`` under ``seed``."""
-    idx = torch.arange(int(start), int(start) + int(n), dtype=torch.int64,
-                       device=device)
-    zero = torch.zeros_like(idx)
-    c = philox4x32_10((idx & _MASK32, idx >> 32, zero + int(level), zero),
+    indices ``start .. start + n - 1`` of ``level`` under ``seed``, one
+    Philox call per quad of indices (module docstring)."""
+    start, n = int(start), int(n)
+    quads = torch.arange(start >> 2, (start + n + 3) >> 2, dtype=torch.int64,
+                         device=device)
+    zero = torch.zeros_like(quads)
+    w = philox4x32_10((quads & _MASK32, quads >> 32, zero + int(level), zero),
                       _key_words(seed))
-    return box_muller(c[0], c[1])
+    z = torch.stack(box_muller(w[0], w[1]) + box_muller(w[2], w[3]), dim=1)
+    return z.reshape(-1)[start & 3:(start & 3) + n]
 
 
 # --------------------------------------------------------------------- #
@@ -375,10 +395,16 @@ synth_mlmc_cuda.launches = 0
 
 
 def normals_dump_cuda(seed, n_samples, *, level=0, start=0, device):
-    """Launch kernel B: the RNG-mode normals of ``level`` on ``device``."""
+    """Launch kernel B: the RNG-mode normals of ``level`` on ``device``.
+
+    The result is a view that starts ``start & 3`` floats into its buffer,
+    so that every whole quad of the stream lands on a 16-byte boundary and
+    the kernel stores it with one vector store."""
     device = cuda_device(device)
     lib = load_library("synth_mlmc")
-    out = torch.empty(int(n_samples), dtype=torch.float32, device=device)
+    head = int(start) & 3
+    out = torch.empty(int(n_samples) + head, dtype=torch.float32,
+                      device=device)[head:]
     k0, k1 = _key_words(seed)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -9,10 +9,15 @@ from Philox4x32-10 with the pool's seed as key and the counter
 ``call`` numbers the sample's Philox calls (four 32-bit words each), so a
 sample may take up to 2^20 calls = 2^22 numbers, on up to 2^12 attempts
 (the attempt wraps past that). ``WIDE`` is bit 31 of the third word: the
-streams of ``ops/cuda_kernels`` (``philox_normals``, kernels A and B, the
-synthetic simulation) put the bare level there, so no counter of this
-module equals one of theirs under the same seed, and two attempts of one
-sample never share a counter.
+other Philox streams of the port put the bare level there, so no counter
+of this module equals one of theirs under the same seed, and two attempts
+of one sample never share a counter. Those streams are the normals of
+kernels A and B (``ops/cuda_kernels``: counter (q low word, q high word,
+level, 0) for the quad q = index >> 2, four normals per call) and
+``SynthSimulation.calculate_keyed_batch`` (counter (index low word, index
+high word, level, attempt << 8 | j)); they share one counter per index q:
+the synthetic simulation's call 0 of attempt 0 for sample q is kernel A's
+call for samples 4q .. 4q + 3 of the same level.
 
 The numbers depend on (seed, level, index, attempt) alone: how a level is
 cut into batches does not change its samples. ``SampleKeys`` carries
@@ -24,7 +29,7 @@ from typing import NamedTuple
 import torch
 
 from mlmc_tpu_torch.ops.cuda_kernels import (
-    _MASK32, _TWO_PI_F32, _key_words, _sqrt_f32, philox4x32_10)
+    _MASK32, _key_words, box_muller, philox4x32_10)
 
 WIDE = 1 << 31
 CALL_BITS = 20
@@ -101,12 +106,9 @@ def keyed_uniforms(seed, level_id, indices, attempts, n, dtype=torch.float32,
 
 def _normal_pairs(words):
     """Box-Muller on word pairs [b, c, 4] -> [b, c, 2, 2] float32 normals
-    (cosine and sine branch of each pair); ``u1`` is offset by half an ulp
-    as in ``ops/cuda_kernels.box_muller``."""
+    (cosine and sine branch of each pair, ``ops/cuda_kernels.box_muller``)."""
     w = words.reshape(words.shape[0], -1, 2, 2)
-    r = _sqrt_f32(-2.0 * torch.log(_unit(w[..., 0]) + (0.5 / (1 << 24))))
-    ang = _TWO_PI_F32 * _unit(w[..., 1])
-    return torch.stack((r * torch.cos(ang), r * torch.sin(ang)), dim=-1)
+    return torch.stack(box_muller(w[..., 0], w[..., 1]), dim=-1)
 
 
 def keyed_normals(seed, level_id, indices, attempts, n, dtype=torch.float32,
@@ -145,8 +147,7 @@ def keyed_call_normals(seed, level_id, indices, calls, dtype=torch.float32):
     words = philox4x32_10((idx & _MASK32, idx >> 32,
                            torch.full_like(c3, WIDE | (int(level_id) & (WIDE - 1))), c3),
                           _key_words(seed))
-    r = _sqrt_f32(-2.0 * torch.log(_unit(words[0]) + (0.5 / (1 << 24))))
-    return (r * torch.cos(_TWO_PI_F32 * _unit(words[1]))).to(dtype)
+    return box_muller(words[0], words[1])[0].to(dtype)
 
 
 class SampleKeys(NamedTuple):

@@ -123,8 +123,10 @@ class SynthSimulation(Simulation):
 
         Sample ``i`` draws its values from Philox4x32-10 calls with key
         ``seed`` and counter (index low word, index high word, level,
-        attempt << 8 | j), two normals per call j (Box-Muller on words 0-1
-        and 2-3), and its failure flag from the call j = 255.
+        attempt << 8 | j), two normals per call j (the cosine branch of
+        Box-Muller on words 0-1 and on words 2-3), and its failure flag
+        from the call j = 255. Call 0 of attempt 0 has the counter of call
+        ``index`` of kernel A's stream on the same level (ops/cuda_kernels).
 
         :param indices: int64 tensor [B] of sample indices
         :param attempts: int64 tensor [B] of retry counts (salting renewals)
@@ -145,7 +147,7 @@ class SynthSimulation(Simulation):
         normals = []
         for j in range(-(-size // 2)):
             w = philox(j)
-            normals += [box_muller(w[0], w[1]), box_muller(w[2], w[3])]
+            normals += [box_muller(w[0], w[1])[0], box_muller(w[2], w[3])[0]]
         y = config["distr"].from_standard_normals(
             torch.stack(normals[:size], dim=1))
         fine = SynthSimulation.sample_fn(y, config["fine_step"])

@@ -207,29 +207,85 @@ def test_philox_known_answers(counter, key, want):
     assert tuple(int(o[0]) for o in out) == want
 
 
-def test_box_muller_bit_map_matches_normal_pair():
+def _np_box_muller(b0, b1):
+    """numpy model of _normal_pair's bit map: (cosine, sine) branch in f64
+    of the f32 uniforms (top 24 bits, u1 offset by half an ulp)."""
+    i1 = (b0 >> 8).astype(np.int32).astype(np.float32)
+    i2 = (b1 >> 8).astype(np.int32).astype(np.float32)
+    u1 = i1 * np.float32(1.0 / (1 << 24)) + np.float32(0.5 / (1 << 24))
+    u2 = i2 * np.float32(1.0 / (1 << 24))
+    r = np.sqrt(-2.0 * np.log(u1.astype(np.float64)))
+    angle = np.float32(2 * np.pi) * u2.astype(np.float64)
+    return r * np.cos(angle), r * np.sin(angle)
+
+
+@pytest.mark.parametrize("branch", [0, 1], ids=["cos", "sin"])
+def test_box_muller_bit_map_matches_normal_pair(branch):
     """Top 24 bits -> (0, 1) uniforms, u1 offset by half an ulp, as
-    mlmc_tpu's _normal_pair; cosine branch of Box-Muller in f32."""
+    mlmc_tpu's _normal_pair; the cosine and the sine branch of Box-Muller
+    in f32 (_normal_pair's first and second output)."""
     rng = np.random.default_rng(5)
     b0 = rng.integers(0, 1 << 32, size=4096, dtype=np.uint64)
     b1 = rng.integers(0, 1 << 32, size=4096, dtype=np.uint64)
     b0[:3] = [0, M32, 255]  # extremes: smallest and largest u1
     z = ck.box_muller(torch.from_numpy(b0.astype(np.int64)),
-                      torch.from_numpy(b1.astype(np.int64))).numpy()
-    i1 = (b0 >> 8).astype(np.int32).astype(np.float32)
-    i2 = (b1 >> 8).astype(np.int32).astype(np.float32)
-    u1 = i1 * np.float32(1.0 / (1 << 24)) + np.float32(0.5 / (1 << 24))
-    u2 = i2 * np.float32(1.0 / (1 << 24))
-    want = (np.sqrt(-2.0 * np.log(u1.astype(np.float64)))
-            * np.cos(np.float32(2 * np.pi) * u2.astype(np.float64)))
+                      torch.from_numpy(b1.astype(np.int64)))[branch].numpy()
+    want = _np_box_muller(b0, b1)[branch]
     assert np.all(np.isfinite(z)) and z.dtype == np.float32
     np.testing.assert_allclose(z, want, rtol=0, atol=4e-6)
+
+
+def _np_philox(counter, key):
+    """Philox4x32-10 in numpy uint64 arithmetic (a product of two uint32
+    words fits), independent of the port's int64 tensor code."""
+    c0, c1, c2, c3 = (np.asarray(c, dtype=np.uint64) for c in counter)
+    k0, k1 = np.uint64(key[0]), np.uint64(key[1])
+    m32 = np.uint64(M32)
+    for rnd in range(10):
+        if rnd:
+            k0 = (k0 + np.uint64(0x9E3779B9)) & m32
+            k1 = (k1 + np.uint64(0xBB67AE85)) & m32
+        p0 = np.uint64(0xD2511F53) * c0
+        p1 = np.uint64(0xCD9E8D57) * c2
+        c0, c1, c2, c3 = (p1 >> np.uint64(32)) ^ c1 ^ k0, p1 & m32, \
+            (p0 >> np.uint64(32)) ^ c3 ^ k1, p0 & m32
+    return c0, c1, c2, c3
+
+
+def _np_stream(seed, level, start, n):
+    """numpy model of the normal stream: index i is slot i & 3 of Philox
+    call i >> 2 (counter (call low, call high, level, 0), key (seed low,
+    seed high)); slots 0-3 = cos, sin of words (0, 1), cos, sin of (2, 3)."""
+    idx = np.arange(start, start + n, dtype=np.uint64)
+    q = idx >> np.uint64(2)
+    w = _np_philox((q & np.uint64(M32), q >> np.uint64(32),
+                    np.full_like(q, level), np.zeros_like(q)),
+                   (seed & M32, (seed >> 32) & M32))
+    slots = np.stack(_np_box_muller(w[0], w[1]) + _np_box_muller(w[2], w[3]))
+    return slots[(idx & np.uint64(3)).astype(np.int64), np.arange(n)]
+
+
+@pytest.mark.parametrize("start", [0, 1, 2, 3, 77, 2 ** 32 - 3, 2 ** 34 - 3])
+@pytest.mark.parametrize("n", [36, 37, 38, 39])
+def test_philox_normals_match_a_numpy_model(start, n):
+    """philox_normals against an independent numpy model of the stream:
+    every residue of the start and the length mod 4, across a quad and
+    across the high word of the index (2^32) and of the Philox call
+    number (index 2^34)."""
+    seed = (7 << 32) | 12345
+    z = ck.philox_normals(seed, 5, start, n).numpy()
+    assert z.dtype == np.float32 and z.shape == (n,)
+    np.testing.assert_allclose(z, _np_stream(seed, 5, start, n), rtol=0, atol=4e-6)
 
 
 def test_synth_normals_index_mapping_and_statistics():
     z = ck.synth_normals(9, 1 << 16, level=3, device="cpu")
     part = ck.synth_normals(9, 100, level=3, start=1000, device="cpu")
     assert torch.equal(z[1000:1100], part)
+    for start in (1, 2, 3, 77, 1001):   # slices that start and end inside quads
+        for n in (1, 2, 3, 4, 5, 6, 7, 8, 9, 100, 4099):
+            part = ck.synth_normals(9, n, level=3, start=start, device="cpu")
+            assert torch.equal(z[start:start + n], part), (start, n)
     assert not torch.equal(ck.synth_normals(9, 100, level=2, device="cpu"),
                            z[:100])
     assert not torch.equal(ck.synth_normals(10, 100, level=3, device="cpu"),
@@ -238,6 +294,11 @@ def test_synth_normals_index_mapping_and_statistics():
     assert abs(z.mean()) < 5 / np.sqrt(z.size)
     assert abs(z.var() - 1) < 5 * np.sqrt(2 / z.size)
     assert st.kstest(z, "norm").pvalue > 1e-3
+    for slot in range(4):   # each slot of a Philox call
+        assert st.kstest(z[slot::4], "norm").pvalue > 1e-3, slot
+    # the cosine and sine of one pair, and neighbouring calls, uncorrelated
+    lag1 = np.corrcoef(z[:-1], z[1:])[0, 1]
+    assert abs(lag1) < 5 / np.sqrt(z.size), lag1
 
 
 # --------------------------------------------------------------------- #
@@ -352,23 +413,37 @@ def test_cuda_memory_mode_vs_plain(cuda_device, R):
 
 
 @pytest.mark.cuda
-def test_cuda_normals_vs_plain(cuda_device):
-    z = ck.synth_normals(4, 1 << 20, level=2, start=77, device=cuda_device)
-    zp = ck.philox_normals(4, 2, 77, 1 << 20, device=cuda_device)
-    assert float((z - zp).abs().max()) <= 1e-5
+@pytest.mark.parametrize("start", [0, 1, 2, 3, 77, 2 ** 32 - 3, 2 ** 34 - 3])
+def test_cuda_normals_vs_plain(cuda_device, start):
+    """Kernel B equals the plain version on the card bit for bit, from
+    every residue of the first index mod 4 and across the high words of
+    the index and of the Philox call number; lengths of every residue."""
+    for n in ((1 << 20) + 1, 1 << 20, 5, 2):
+        before = ck.normals_dump_cuda.launches
+        z = ck.synth_normals(4, n, level=2, start=start, device=cuda_device)
+        assert ck.normals_dump_cuda.launches == before + 1
+        zp = ck.philox_normals(4, 2, start, n, device=cuda_device)
+        assert z.shape == (n,) and torch.equal(z, zp), (n, float((z - zp).abs().max()))
+
+
+#: per-level first indices for kernel A's RNG mode: levels that start
+#: inside a quad, as the shards of a sample mesh may
+CUDA_STARTS = [None, [1, 2, 3, 77, 5, (1 << 16) - 1]]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("starts", CUDA_STARTS, ids=["from0", "misaligned"])
 @pytest.mark.parametrize("R", CUDA_R)
-def test_cuda_rng_mode_vs_plain(cuda_device, R):
+def test_cuda_rng_mode_vs_plain(cuda_device, R, starts):
     n = CUDA_COUNTS[:-1] + [1 << 18]
     got = ck.synth_mlmc_pipeline(5, R, n, CUDA_STEPS, domain=DOMAIN,
-                                 device=cuda_device)
+                                 device=cuda_device, starts=starts)
     plain, s_abs = (ck.synth_mlmc_plain(None, 5, n, *ck._ladder(CUDA_STEPS), R,
                                         domain=DOMAIN, device=cuda_device,
-                                        absolute=a) for a in (False, True))
+                                        absolute=a, starts=starts)
+                    for a in (False, True))
     _assert_vs_plain(got, plain, s_abs, len(n))
     assert not torch.any(got[0].cov_coarse != 0)
     assert all(not torch.any(f != 0) for f in got[2])
     _assert_bit_identical(got, ck.synth_mlmc_pipeline(
-        5, R, n, CUDA_STEPS, domain=DOMAIN, device=cuda_device))
+        5, R, n, CUDA_STEPS, domain=DOMAIN, device=cuda_device, starts=starts))

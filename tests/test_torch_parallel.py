@@ -142,6 +142,37 @@ def test_sharded_synth_pipeline_equals_one_device(n_shards):
     _assert_within_s_abs(got, one, s_abs)
 
 
+@pytest.mark.parametrize("n_shards", [2, 3, 4])
+def test_sharded_synth_pipeline_draws_one_device_stream(n_shards, monkeypatch):
+    """Shard counts that are not multiples of 4: every shard but the first
+    starts inside a Philox call's quad of normals. The shards together draw
+    the one-device normals bit for bit; the sums agree within 1e-13 S_abs."""
+    n = [n_shards * c for c in (2047, 1023, 509)]
+    draws = []
+    philox_normals = ck.philox_normals
+
+    def recorded(seed, level, start, count, *, device=None):
+        z = philox_normals(seed, level, start, count, device=device)
+        draws.append((level, start, z))
+        return z
+
+    monkeypatch.setattr(ck, "philox_normals", recorded)
+    one = ck.synth_mlmc_pipeline(11, 7, n, STEPS, domain=DOMAIN, device="cpu")
+    whole = {lvl: z for lvl, start, z in draws}
+    assert sorted(whole) == [0, 1, 2] and all(start == 0 for _, start, _ in draws)
+    draws.clear()
+    got = sharded_synth_pipeline(_cpu_mesh(n_shards), 7, n, STEPS,
+                                 domain=DOMAIN)(11)
+    for lvl in range(3):
+        mine = sorted((start, z) for level, start, z in draws if level == lvl)
+        assert [start for start, _ in mine] == [s * n[lvl] // n_shards
+                                                for s in range(n_shards)]
+        assert torch.equal(torch.cat([z for _, z in mine]), whole[lvl]), lvl
+    s_abs = ck.synth_mlmc_plain(None, 11, n, *ck._ladder(STEPS), 7,
+                                domain=DOMAIN, device="cpu", absolute=True)
+    _assert_within_s_abs(got, one, s_abs)
+
+
 def test_sharded_synth_pipeline_guards():
     """Counts that do not divide by the device count are rejected, as JAX's."""
     with pytest.raises(ValueError, match="divisible"):
