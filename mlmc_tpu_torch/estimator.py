@@ -37,6 +37,7 @@ from mlmc_tpu_torch.ops import cuda_extended as cx
 from mlmc_tpu_torch.ops import cuda_kernels as ck
 from mlmc_tpu_torch.quantity.quantity import as_tensor
 from mlmc_tpu_torch.quantity.quantity_types import ScalarType
+from mlmc_tpu_torch.tool import profiling
 
 
 class Estimate:
@@ -116,25 +117,26 @@ class Estimate:
         per-chunk memo, so nothing outlives the call); other DAGs go
         through the chunked ``Quantity.samples`` path.
         """
-        storage = self._sample_storage
-        n_levels = storage.get_n_levels()
-        root = self._quantity.get_quantity_storage()
-        by_id = {}
-        if self._quantity.traceable():
-            dag_eval = self._quantity.build_eval()
-            leaves, n_trues, lids = qe._gather_raw_leaves(root)
-            for leaf, n, lid in zip(leaves, n_trues, lids):
-                by_id[lid] = as_tensor(dag_eval(
-                    qe._normalize_leaf(leaf[:n], lid == 0)))
-        level_qoi = []
-        for lid in range(n_levels):
-            if lid not in by_id:
-                by_id[lid] = torch.cat(
-                    [as_tensor(self._quantity.samples(cs))
-                     for cs in storage.chunks(level_id=lid)], dim=1)
-            level_qoi.append(by_id[lid].to(root.device))
-        qe.cache_clear()
-        return level_qoi
+        with profiling.span("estimate.gather"):
+            storage = self._sample_storage
+            n_levels = storage.get_n_levels()
+            root = self._quantity.get_quantity_storage()
+            by_id = {}
+            if self._quantity.traceable():
+                dag_eval = self._quantity.build_eval()
+                leaves, n_trues, lids = qe._gather_raw_leaves(root)
+                for leaf, n, lid in zip(leaves, n_trues, lids):
+                    by_id[lid] = as_tensor(dag_eval(
+                        qe._normalize_leaf(leaf[:n], lid == 0)))
+            level_qoi = []
+            for lid in range(n_levels):
+                if lid not in by_id:
+                    by_id[lid] = torch.cat(
+                        [as_tensor(self._quantity.samples(cs))
+                         for cs in storage.chunks(level_id=lid)], dim=1)
+                level_qoi.append(by_id[lid].to(root.device))
+            qe.cache_clear()
+            return level_qoi
 
     @staticmethod
     def _harmonize_validity(y, components, moments_fn):
@@ -162,17 +164,19 @@ class Estimate:
     def _packed_streams(self, moments_fn, components):
         """Every (component, level) stream of the quantity, component-major,
         packed for kernels C and D on the estimation device."""
+        profiling.count("estimate.packs")
         level_qoi = self._gather_level_qoi()
-        if len(components) > 1:
-            level_qoi = [self._harmonize_validity(q, components, moments_fn)
-                         for q in level_qoi]
-        fine, coarse, hasc = [], [], []
-        for m in components:
-            for lvl, q in enumerate(level_qoi):
-                fine.append(q[m, :, 0])
-                coarse.append(q[m, :, 1] if q.shape[2] > 1 else None)
-                hasc.append(lvl > 0)
-        return ck.pack_streams(fine, coarse, hasc)
+        with profiling.span("estimate.pack"):
+            if len(components) > 1:
+                level_qoi = [self._harmonize_validity(q, components, moments_fn)
+                             for q in level_qoi]
+            fine, coarse, hasc = [], [], []
+            for m in components:
+                for lvl, q in enumerate(level_qoi):
+                    fine.append(q[m, :, 0])
+                    coarse.append(q[m, :, 1] if q.shape[2] > 1 else None)
+                    hasc.append(lvl > 0)
+            return ck.pack_streams(fine, coarse, hasc)
 
     @staticmethod
     def _split(results, components, n_levels):
@@ -188,11 +192,13 @@ class Estimate:
         """
         basis = self._fast_basis(moments_fn)
         streams = self._packed_streams(moments_fn, components)
-        out = ck.samples_moments(
-            streams, moments_fn.size, domain=tuple(moments_fn.domain),
-            ref_domain=tuple(float(v) for v in moments_fn.ref_domain),
-            basis=basis)
-        host = [f.cpu().numpy() for f in out]  # one fetch per field
+        with profiling.span("estimate.launch"):
+            out = ck.samples_moments(
+                streams, moments_fn.size, domain=tuple(moments_fn.domain),
+                ref_domain=tuple(float(v) for v in moments_fn.ref_domain),
+                basis=basis)
+        with profiling.span("estimate.fetch"):
+            host = [f.cpu().numpy() for f in out]  # one fetch per field
         flat = [ck.SynthMomentResult(*(f[s] for f in host))
                 for s in range(len(streams.counts))]
         return self._split(flat, components, self._sample_storage.get_n_levels())
@@ -226,8 +232,9 @@ class Estimate:
         device."""
         import mlmc_tpu_torch.tool.simple_distribution as sd
 
-        moments_obj, info = sd.construct_ortogonal_moments(
-            self._moments_fn, cov, tol=orth_moments_tol)
+        with profiling.span("density.orth"):
+            moments_obj, info = sd.construct_ortogonal_moments(
+                self._moments_fn, cov, tol=orth_moments_tol)
         mu = info[2] @ mean
         moments_data = np.stack((mu[:moments_obj.size],
                                  np.ones(moments_obj.size)), axis=1)
@@ -287,11 +294,13 @@ class Estimate:
         """
         basis = self._fast_basis(moments_fn)
         streams = self._packed_streams(moments_fn, components)
-        out = cx.samples_ext_moments(
-            streams, moments_fn.size, domain=tuple(moments_fn.domain),
-            ref_domain=tuple(float(v) for v in moments_fn.ref_domain),
-            basis=basis)
-        flat = [cx.to_host(out, s) for s in range(len(streams.counts))]
+        with profiling.span("estimate.launch"):
+            out = cx.samples_ext_moments(
+                streams, moments_fn.size, domain=tuple(moments_fn.domain),
+                ref_domain=tuple(float(v) for v in moments_fn.ref_domain),
+                basis=basis)
+        with profiling.span("estimate.fetch"):
+            flat = [cx.to_host(out, s) for s in range(len(streams.counts))]
         return self._split(flat, components, self._sample_storage.get_n_levels())
 
     def estimate_moments_extended(self, moments_fn=None):
@@ -376,9 +385,10 @@ class Estimate:
         if raw_vars is None:
             raw_vars, n_samples = self.estimate_diff_vars(
                 self._resolve_moments(moments_fn))
-        sim_steps = np.squeeze(np.asarray(self._sample_storage.get_level_parameters()))
-        vars = self._all_moments_variance_regression(raw_vars, sim_steps)
-        return vars, self._sample_storage.get_n_ops()
+        with profiling.span("estimate.host"):
+            sim_steps = np.squeeze(np.asarray(self._sample_storage.get_level_parameters()))
+            vars = self._all_moments_variance_regression(raw_vars, sim_steps)
+            return vars, self._sample_storage.get_n_ops()
 
     def _all_moments_variance_regression(self, raw_vars, sim_steps):
         """Regress each moment column; structured quantities ([L, ..., R])
@@ -832,15 +842,17 @@ def estimate_n_samples_for_target_variance(target_variance, prescribe_vars, n_op
     :param n_ops: per-level cost C_l
     :return: [L] optimal sample counts (max over moments)
     """
-    vars = np.asarray(prescribe_vars, dtype=float)
-    n_ops = np.asarray(n_ops, dtype=float)
-    sqrt_var_n = np.sqrt(vars.T * n_ops)  # moments in rows, levels in cols
-    total = np.sum(sqrt_var_n, axis=1)
-    n_samples_estimate = np.round((sqrt_var_n / n_ops).T * total / target_variance).astype(int)
-    n_samples_estimate_safe = np.maximum(
-        np.minimum(n_samples_estimate, vars * n_levels / target_variance), 2
-    )
-    return np.max(n_samples_estimate_safe, axis=1).astype(int)
+    with profiling.span("estimate.host"):
+        vars = np.asarray(prescribe_vars, dtype=float)
+        n_ops = np.asarray(n_ops, dtype=float)
+        sqrt_var_n = np.sqrt(vars.T * n_ops)  # moments in rows, levels in cols
+        total = np.sum(sqrt_var_n, axis=1)
+        n_samples_estimate = np.round(
+            (sqrt_var_n / n_ops).T * total / target_variance).astype(int)
+        n_samples_estimate_safe = np.maximum(
+            np.minimum(n_samples_estimate, vars * n_levels / target_variance), 2
+        )
+        return np.max(n_samples_estimate_safe, axis=1).astype(int)
 
 
 def calc_level_params(step_range, n_levels):

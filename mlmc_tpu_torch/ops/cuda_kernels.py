@@ -55,6 +55,7 @@ import torch
 
 from mlmc_tpu_torch.device import cuda_device, resolve_device
 from mlmc_tpu_torch.ops._build import load_library
+from mlmc_tpu_torch.tool import profiling
 
 R_PAD = 32  # largest supported moment count (as in the Pallas kernels)
 #: samples per thread block of kernel A; ~1.5k blocks at 1e8 samples
@@ -342,43 +343,44 @@ def synth_mlmc_cuda(x, seed, n_per_level, fine_steps, coarse_steps,
         Philox counter of its first sample; default 0)
     :return: stacked SynthMomentResult (float64, int64 counts)
     """
-    device = cuda_device(device)
-    lib = load_library("synth_mlmc")
-    L, R = len(n_per_level), int(n_moments)
-    if x is not None:
-        if x.device != device or x.dtype != torch.float32 \
-                or not x.is_contiguous():
-            raise ValueError("x must be a contiguous float32 tensor on %s"
-                             % device)
-        if x.numel() != sum(int(n) for n in n_per_level):
-            raise ValueError("x holds %d samples, levels need %d"
-                             % (x.numel(), sum(int(n) for n in n_per_level)))
-    offsets = np.concatenate([[0], np.cumsum([int(n) for n in n_per_level])])
-    blocks, lvl_blocks = _block_tables(n_per_level, offsets[:-1], has_coarse,
-                                       starts=starts)
-    lvl = np.asarray([(_f32(f), _f32(c), 1.0 if h else 0.0) for f, c, h in
-                      zip(fine_steps, coarse_steps, has_coarse)],
-                     dtype=np.float32)
-    codes = _tile_schedule(R)
-    t_scale, t_shift = _domain_map(domain)
-    k0, k1 = _key_words(seed)
+    with profiling.span("fused.prepare"):
+        device = cuda_device(device)
+        lib = load_library("synth_mlmc")
+        L, R = len(n_per_level), int(n_moments)
+        if x is not None:
+            if x.device != device or x.dtype != torch.float32 \
+                    or not x.is_contiguous():
+                raise ValueError("x must be a contiguous float32 tensor on %s"
+                                 % device)
+            if x.numel() != sum(int(n) for n in n_per_level):
+                raise ValueError("x holds %d samples, levels need %d"
+                                 % (x.numel(), sum(int(n) for n in n_per_level)))
+        offsets = np.concatenate([[0], np.cumsum([int(n) for n in n_per_level])])
+        blocks, lvl_blocks = _block_tables(n_per_level, offsets[:-1], has_coarse,
+                                           starts=starts)
+        lvl = np.asarray([(_f32(f), _f32(c), 1.0 if h else 0.0) for f, c, h in
+                          zip(fine_steps, coarse_steps, has_coarse)],
+                         dtype=np.float32)
+        codes = _tile_schedule(R)
+        t_scale, t_shift = _domain_map(domain)
+        k0, k1 = _key_words(seed)
 
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    blk_d, lvl_d, lb_d, codes_d = (dev(blocks), dev(lvl), dev(lvl_blocks),
-                                   dev(codes))
-    n_blk, n_codes = blocks.shape[0], codes.shape[0]
-    partial = torch.empty(n_blk, _gram_partial_size(codes),
-                          dtype=torch.float64, device=device)
-    partial_n = torch.empty(n_blk, dtype=torch.int64, device=device)
-    sums = torch.empty(L, R, dtype=torch.float64, device=device)
-    sums2 = torch.empty(L, R, dtype=torch.float64, device=device)
-    cov_f = torch.empty(L, R, R, dtype=torch.float64, device=device)
-    cov_c = torch.empty(L, R, R, dtype=torch.float64, device=device)
-    n_valid = torch.empty(L, dtype=torch.int64, device=device)
+        blk_d, lvl_d, lb_d, codes_d = (dev(blocks), dev(lvl), dev(lvl_blocks),
+                                       dev(codes))
+        n_blk, n_codes = blocks.shape[0], codes.shape[0]
+        partial = torch.empty(n_blk, _gram_partial_size(codes),
+                              dtype=torch.float64, device=device)
+        partial_n = torch.empty(n_blk, dtype=torch.int64, device=device)
+        sums = torch.empty(L, R, dtype=torch.float64, device=device)
+        sums2 = torch.empty(L, R, dtype=torch.float64, device=device)
+        cov_f = torch.empty(L, R, R, dtype=torch.float64, device=device)
+        cov_c = torch.empty(L, R, R, dtype=torch.float64, device=device)
+        n_valid = torch.empty(L, dtype=torch.int64, device=device)
     # the C launcher runs on the current device: make it ``device``
-    with torch.cuda.device(device):
+    with profiling.span("fused.launch"), torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         _check(lib.synth_mlmc_launch(
             None if x is None else x.data_ptr(), blk_d.data_ptr(), n_blk,

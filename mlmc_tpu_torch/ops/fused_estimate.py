@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from mlmc_tpu_torch.device import resolve_device
+from mlmc_tpu_torch.tool import profiling
 
 
 class MomentAccumulators(NamedTuple):
@@ -160,36 +161,40 @@ def accumulators_to_estimates(accs):
     :return: dict with l_means [L, R], l_vars [L, R], mean [R], var [R],
         cov [R, R] (telescoped fine-coarse), n_samples [L]
     """
-    l_means, l_vars, ns, covs = [], [], [], []
-    for lvl, a in enumerate(accs):
-        s = _np(a.sums).astype(np.float64)
-        s2 = _np(a.sums2).astype(np.float64)
-        n = float(_np(a.n_valid))
-        ns.append(n)
-        # degenerate counts: n == 0 -> zero mean / infinite variance,
-        # n == 1 -> infinite variance
-        safe_n = max(n, 1.0)
-        mean = s / safe_n
-        var = ((s2 - s * s / safe_n) / (n - 1) if n > 1
-               else np.full_like(s, np.inf))
-        if n == 0:
-            mean = np.zeros_like(s)
-        l_means.append(mean)
-        l_vars.append(var)
-        cf = _np(a.cov_fine).astype(np.float64) / safe_n
-        cc = _np(a.cov_coarse).astype(np.float64) / safe_n
-        covs.append(cf - cc if lvl > 0 else cf)
-    l_means = np.stack(l_means)
-    l_vars = np.stack(l_vars)
-    ns = np.asarray(ns)
-    return dict(
-        l_means=l_means,
-        l_vars=l_vars,
-        mean=l_means.sum(axis=0),
-        var=(l_vars / np.maximum(ns, 1.0)[:, None]).sum(axis=0),
-        cov=np.sum(covs, axis=0),
-        n_samples=ns,
-    )
+    with profiling.span("fused.fetch"):
+        host = [[_np(f) for f in (a.sums, a.sums2, a.n_valid, a.cov_fine, a.cov_coarse)]
+                for a in accs]
+    with profiling.span("fused.host"):
+        l_means, l_vars, ns, covs = [], [], [], []
+        for lvl, (sums, sums2, n_valid, cov_fine, cov_coarse) in enumerate(host):
+            s = sums.astype(np.float64)
+            s2 = sums2.astype(np.float64)
+            n = float(n_valid)
+            ns.append(n)
+            # degenerate counts: n == 0 -> zero mean / infinite variance,
+            # n == 1 -> infinite variance
+            safe_n = max(n, 1.0)
+            mean = s / safe_n
+            var = ((s2 - s * s / safe_n) / (n - 1) if n > 1
+                   else np.full_like(s, np.inf))
+            if n == 0:
+                mean = np.zeros_like(s)
+            l_means.append(mean)
+            l_vars.append(var)
+            cf = cov_fine.astype(np.float64) / safe_n
+            cc = cov_coarse.astype(np.float64) / safe_n
+            covs.append(cf - cc if lvl > 0 else cf)
+        l_means = np.stack(l_means)
+        l_vars = np.stack(l_vars)
+        ns = np.asarray(ns)
+        return dict(
+            l_means=l_means,
+            l_vars=l_vars,
+            mean=l_means.sum(axis=0),
+            var=(l_vars / np.maximum(ns, 1.0)[:, None]).sum(axis=0),
+            cov=np.sum(covs, axis=0),
+            n_samples=ns,
+        )
 
 
 def fused_mlmc_moments(sim_chunk_fns, moments_fn, seed, n_samples_per_level,

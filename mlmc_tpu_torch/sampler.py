@@ -16,6 +16,7 @@ from mlmc_tpu_torch.sample_storage import SampleStorage
 from mlmc_tpu_torch.sampling_pool import SamplingPool
 from mlmc_tpu_torch.sim.simulation import Simulation
 from mlmc_tpu_torch.tags import TagRange, parse_tags
+from mlmc_tpu_torch.tool import profiling
 from mlmc_tpu_torch.tool.log import get_logger, event
 
 _log = get_logger("sampler")
@@ -116,12 +117,13 @@ class Sampler:
         self.ask_sampling_pool_for_samples(timeout=timeout)
         gap = self._n_target_samples - self._n_scheduled_samples
         reserve = getattr(self.sample_storage, "reserve_capacity", None)
-        for level_id in np.flatnonzero(gap > 0):
-            if reserve is not None:
-                # device storages pre-grow to the target's power of two
-                # instead of doubling through every intermediate capacity
-                reserve(int(level_id), int(self._n_target_samples[level_id]))
-            self._dispatch_level(int(level_id), int(gap[level_id]))
+        with profiling.span("sampler.schedule"):
+            for level_id in np.flatnonzero(gap > 0):
+                if reserve is not None:
+                    # device storages pre-grow to the target's power of two
+                    # instead of doubling through every intermediate capacity
+                    reserve(int(level_id), int(self._n_target_samples[level_id]))
+                self._dispatch_level(int(level_id), int(gap[level_id]))
 
     def _dispatch_level(self, level_id, count):
         """Schedule ``count`` fresh samples on one level: a single TagRange
@@ -180,7 +182,8 @@ class Sampler:
         deadline = None if timeout is None else time.perf_counter() + timeout
         while True:
             done, dead, n_running, costs = self._sampling_pool.get_finished()
-            self._store_samples(done, dead, costs)
+            with profiling.span("sampler.store"):
+                self._store_samples(done, dead, costs)
             if n_running == 0:
                 return 0
             if deadline is not None and time.perf_counter() >= deadline:

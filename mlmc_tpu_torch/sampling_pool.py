@@ -36,6 +36,7 @@ import torch
 
 from mlmc_tpu_torch.device import resolve_device
 from mlmc_tpu_torch.level_simulation import LevelSimulation
+from mlmc_tpu_torch.tool import profiling
 
 # bulk level results: arrays instead of per-sample tuples (storages with
 # save_samples_bulk consume these without marshalling)
@@ -505,22 +506,25 @@ class DeviceBatchPool(SamplingPool):
         self._warm.add(warm_key)
         timed = first_call or warm_key not in self._timed
         if timed:
-            self._sync()
+            profiling.count("pool.probes")
+            with profiling.span("pool.drain"):
+                self._sync()
         t0 = time.perf_counter()
-        if self._sharding is not None:
-            fine, coarse, failed = self._sharded_batch(level_sim, level_id,
-                                                       idxs, attempts)
-        else:
-            self.n_dispatches += 1
-            if is_range:
-                idx_t = torch.arange(idxs.start, idxs.stop, dtype=torch.int64,
-                                     device=self._device)
-                att_t = torch.zeros_like(idx_t)
+        with profiling.span("pool.dispatch"):
+            if self._sharding is not None:
+                fine, coarse, failed = self._sharded_batch(level_sim, level_id,
+                                                           idxs, attempts)
             else:
-                idx_t = torch.from_numpy(idxs).to(self._device)
-                att_t = torch.from_numpy(attempts).to(self._device)
-            fine, coarse, failed = self._keyed_batch(level_sim, level_id,
-                                                     idx_t, att_t)
+                self.n_dispatches += 1
+                if is_range:
+                    idx_t = torch.arange(idxs.start, idxs.stop, dtype=torch.int64,
+                                         device=self._device)
+                    att_t = torch.zeros_like(idx_t)
+                else:
+                    idx_t = torch.from_numpy(idxs).to(self._device)
+                    att_t = torch.from_numpy(attempts).to(self._device)
+                fine, coarse, failed = self._keyed_batch(level_sim, level_id,
+                                                         idx_t, att_t)
         if is_range:
             idxs = np.arange(idxs.start, idxs.stop, dtype=np.int64)
         rec = dict(level_id=level_id, idxs=idxs, n=n, fine=fine,
@@ -575,14 +579,15 @@ class DeviceBatchPool(SamplingPool):
     def _fetch(self, recs):
         """Bring the failure masks (and, for host-bound pools, the
         payloads) of ``recs`` to the host."""
-        masks = torch.cat([r["failed"] for r in recs]).cpu().numpy()
-        start = 0
-        for r in recs:
-            r["failed_host"] = masks[start:start + r["n"]]
-            start += r["n"]
-            if not self._device_results:
-                r["fine"] = r["fine"].cpu().numpy()
-                r["coarse"] = r["coarse"].cpu().numpy()
+        with profiling.span("pool.fetch"):
+            masks = torch.cat([r["failed"] for r in recs]).cpu().numpy()
+            start = 0
+            for r in recs:
+                r["failed_host"] = masks[start:start + r["n"]]
+                start += r["n"]
+                if not self._device_results:
+                    r["fine"] = r["fine"].cpu().numpy()
+                    r["coarse"] = r["coarse"].cpu().numpy()
 
     def _collect(self, recs):
         """Complete dispatched batches: every still-pending failure mask
@@ -592,10 +597,11 @@ class DeviceBatchPool(SamplingPool):
             self.n_blocking_fetches += 1
             self._fetch(pend)
         succ_all, fail_all = {}, {}
-        for rec in recs:
-            s, f = self._finalize(rec)
-            self._merge_results(succ_all, s)
-            self._merge_results(fail_all, f)
+        with profiling.span("pool.finalize"):
+            for rec in recs:
+                s, f = self._finalize(rec)
+                self._merge_results(succ_all, s)
+                self._merge_results(fail_all, f)
         return succ_all, fail_all
 
     @staticmethod
@@ -658,45 +664,46 @@ class DeviceBatchPool(SamplingPool):
         blocking fetch (or one per ``INFLIGHT_BYTES`` of host-bound
         payload).
         """
-        recs, deferred = [], []
-        missing = {}  # probes each key lacked when the wave began
-        for level_id in sorted(self._pending.keys()):
-            for sl in self._level_slices(level_id):
-                key = (level_id, sl[2], isinstance(sl[0], range))
-                if key not in missing:
-                    missing[key] = (0 if key in self._timed
-                                    else 1 if key in self._warm else 2)
-                if missing[key]:
-                    missing[key] -= 1
-                    recs.append(self._dispatch_batch(level_id, *sl))
-                else:
-                    deferred.append((level_id, sl))
-        successful, failed = {}, {}
+        with profiling.span("pool.wave"):
+            recs, deferred = [], []
+            missing = {}  # probes each key lacked when the wave began
+            for level_id in sorted(self._pending.keys()):
+                for sl in self._level_slices(level_id):
+                    key = (level_id, sl[2], isinstance(sl[0], range))
+                    if key not in missing:
+                        missing[key] = (0 if key in self._timed
+                                        else 1 if key in self._warm else 2)
+                    if missing[key]:
+                        missing[key] -= 1
+                        recs.append(self._dispatch_batch(level_id, *sl))
+                    else:
+                        deferred.append((level_id, sl))
+            successful, failed = {}, {}
 
-        def drain(recs):
-            s, f = self._collect(recs)
-            self._merge_results(successful, s)
-            self._merge_results(failed, f)
+            def drain(recs):
+                s, f = self._collect(recs)
+                self._merge_results(successful, s)
+                self._merge_results(failed, f)
 
-        pending_bytes = 0
-        for level_id, sl in deferred:
-            rec = self._dispatch_batch(level_id, *sl)
-            recs.append(rec)
-            if not self._device_results:
-                pending_bytes += (rec["fine"].numel() * rec["fine"].element_size()
-                                  + rec["coarse"].numel()
-                                  * rec["coarse"].element_size())
-                if pending_bytes >= self._inflight_bytes:
-                    # host-bound payloads: drain the wave early so the
-                    # un-fetched device buffers stay under the budget
-                    drain(recs)
-                    recs, pending_bytes = [], 0
-        if recs:
-            drain(recs)
-        # warm timings win; first-call timings only stand in while a level
-        # has no warm measurement yet
-        times = {lvl: list(t) for lvl, t in self._cold_times.items()}
-        for lvl, t in self.times.items():
-            if t[1]:
-                times[lvl] = list(t)
-        return successful, failed, self.n_pending(), list(times.items())
+            pending_bytes = 0
+            for level_id, sl in deferred:
+                rec = self._dispatch_batch(level_id, *sl)
+                recs.append(rec)
+                if not self._device_results:
+                    pending_bytes += (rec["fine"].numel() * rec["fine"].element_size()
+                                      + rec["coarse"].numel()
+                                      * rec["coarse"].element_size())
+                    if pending_bytes >= self._inflight_bytes:
+                        # host-bound payloads: drain the wave early so the
+                        # un-fetched device buffers stay under the budget
+                        drain(recs)
+                        recs, pending_bytes = [], 0
+            if recs:
+                drain(recs)
+            # warm timings win; first-call timings only stand in while a level
+            # has no warm measurement yet
+            times = {lvl: list(t) for lvl, t in self._cold_times.items()}
+            for lvl, t in self.times.items():
+                if t[1]:
+                    times[lvl] = list(t)
+            return successful, failed, self.n_pending(), list(times.items())

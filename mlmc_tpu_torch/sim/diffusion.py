@@ -32,6 +32,7 @@ from mlmc_tpu_torch.quantity.quantity_spec import QuantitySpec
 from mlmc_tpu_torch.random.keyed import keyed_normals, keyed_uniforms
 from mlmc_tpu_torch.sim.simulation import (Simulation, config_dtype, generator_on,
                                            level_cached)
+from mlmc_tpu_torch.tool import profiling
 
 
 # CG iterations between two host checks of the active mask (each check
@@ -47,10 +48,20 @@ def preconditioned_cg(matvec, M, b, tol, maxiter):
     ``|r|^2 <= tol^2 |b|^2`` (the rule of ``jax.scipy.sparse.linalg.cg``)
     or at ``maxiter``: its state is frozen by the ``active`` mask while the
     others iterate. The host looks at the mask every ``CG_CHECK_EVERY``
-    iterations, which changes the time and never the result.
+    iterations, which changes the time and never the result. While
+    tracing, the loop's turns are counted (``cg.turns``).
 
     :return: (solutions like ``b``, iterations taken per sample [B])
     """
+    with profiling.span("sim.solve"):
+        x, iters, turns = _cg_loop(matvec, M, b, tol, int(maxiter))
+    profiling.count("cg.turns", turns)
+    return x, iters
+
+
+def _cg_loop(matvec, M, b, tol, maxiter):
+    """The loop of ``preconditioned_cg``: (x, iterations per sample, the
+    loop's turns)."""
     dims = tuple(range(1, b.dim()))
     lead = (-1,) + (1,) * len(dims)
 
@@ -64,10 +75,13 @@ def preconditioned_cg(matvec, M, b, tol, maxiter):
     p = z
     gamma = dot(r, z)
     iters = torch.zeros(b.shape[0], dtype=torch.int64, device=b.device)
-    for k in range(int(maxiter)):
+    for k in range(maxiter):
         active = dot(r, r) > atol2
-        if k % CG_CHECK_EVERY == 0 and not bool(active.any()):
-            break
+        if k % CG_CHECK_EVERY == 0:
+            with profiling.span("sim.cg_check"):
+                done = not bool(active.any())
+            if done:
+                return x, iters, k
         Ap = matvec(p)
         alpha = (gamma / dot(p, Ap)).view(lead)
         a = active.view(lead)
@@ -78,7 +92,7 @@ def preconditioned_cg(matvec, M, b, tol, maxiter):
         p = torch.where(a, z + (gamma_new / gamma).view(lead) * p, p)
         gamma = torch.where(active, gamma_new, gamma)
         iters += active
-    return x, iters
+    return x, iters, maxiter
 
 
 class DarcyBatchEntryPoints:
@@ -148,8 +162,9 @@ class DarcyBatchEntryPoints:
     def calculate_keyed_batch(cls, config, seed, level_id, indices, attempts):
         """Level batch from sample identities: each sample's draws are a
         function of (seed, level, index, attempt) alone (``random/keyed``)."""
-        return cls._from_draws(config, cls._keyed_draws(
-            config, seed, level_id, indices, attempts))
+        with profiling.span("sim.draws"):
+            draws = cls._keyed_draws(config, seed, level_id, indices, attempts)
+        return cls._from_draws(config, draws)
 
 
 def _wave_vectors_2d(model, corr_length, mode_no, seed=0):
@@ -548,16 +563,18 @@ class DiffusionSimulation(DarcyBatchEntryPoints, Simulation):
             solves [B], of the coarse solves [B] or None)
         """
         fine_n, coarse_n = config["fine_n"], config["coarse_n"]
-        K_fine = cls._conductivity(config, fine_n, noise=noise, phases=phases, **extra)
+        with profiling.span("sim.field"):
+            K_fine = cls._conductivity(config, fine_n, noise=noise, phases=phases, **extra)
         p, it_fine = cls._solve_pressure(config, K_fine)
         fine = cls._flux(K_fine, p)
         if coarse_n > 0:
-            if "_circ_eig" in config:
-                # one embedding FFT per sample: the coarse grid
-                # point-samples the fine realization
-                K_coarse = cls._coarse_from_fine_K(config, K_fine)
-            else:
-                K_coarse = cls._conductivity(config, coarse_n, phases=phases, **extra)
+            with profiling.span("sim.field"):
+                if "_circ_eig" in config:
+                    # one embedding FFT per sample: the coarse grid
+                    # point-samples the fine realization
+                    K_coarse = cls._coarse_from_fine_K(config, K_fine)
+                else:
+                    K_coarse = cls._conductivity(config, coarse_n, phases=phases, **extra)
             del K_fine, p
             pc, it_coarse = cls._solve_pressure(config, K_coarse)
             coarse = cls._flux(K_coarse, pc)

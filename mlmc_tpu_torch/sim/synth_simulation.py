@@ -25,6 +25,7 @@ from mlmc_tpu_torch.level_simulation import LevelSimulation
 from mlmc_tpu_torch.quantity.quantity_spec import QuantitySpec
 from mlmc_tpu_torch.random.distributions import as_torch_distr
 from mlmc_tpu_torch.sim.simulation import Simulation
+from mlmc_tpu_torch.tool import profiling
 
 
 class SynthSimulation(Simulation):
@@ -144,12 +145,13 @@ class SynthSimulation(Simulation):
             return philox4x32_10(counter[:3] + (counter[3] | j,), key)
 
         size = int(np.prod(config["res_format"][0].shape))
-        normals = []
-        for j in range(-(-size // 2)):
-            w = philox(j)
-            normals += [box_muller(w[0], w[1])[0], box_muller(w[2], w[3])[0]]
-        y = config["distr"].from_standard_normals(
-            torch.stack(normals[:size], dim=1))
+        with profiling.span("sim.draws"):
+            normals = []
+            for j in range(-(-size // 2)):
+                w = philox(j)
+                normals += [box_muller(w[0], w[1])[0], box_muller(w[2], w[3])[0]]
+            y = config["distr"].from_standard_normals(
+                torch.stack(normals[:size], dim=1))
         fine = SynthSimulation.sample_fn(y, config["fine_step"])
         if SynthSimulation._is_level0(config):
             coarse = torch.zeros_like(fine)

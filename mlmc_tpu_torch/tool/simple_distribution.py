@@ -32,6 +32,7 @@ import torch
 
 import mlmc_tpu_torch.moments
 from mlmc_tpu_torch.device import resolve_device
+from mlmc_tpu_torch.tool import profiling
 
 EXACT_QUAD_LIMIT = 1000
 
@@ -378,22 +379,23 @@ class SimpleDistribution:
             if abs(float(np.dot(grad, step))) < self._quad_tolerance:
                 return False
 
-        f = self._density_integrand_last_mom(multipliers)
-        breaks, _ = adaptive_panels(
-            f, self.domain[0], self.domain[1],
-            tol=self._quad_tolerance, max_panels=self._max_panels,
-        )
-        pts, wts = panels_to_quadrature(breaks)
-        self._quad_points = pts
-        self._quad_weights = wts
-        self._quad_moments = self.eval_moments(pts)
+        with profiling.span("density.panels"):
+            f = self._density_integrand_last_mom(multipliers)
+            breaks, _ = adaptive_panels(
+                f, self.domain[0], self.domain[1],
+                tol=self._quad_tolerance, max_panels=self._max_panels,
+            )
+            pts, wts = panels_to_quadrature(breaks)
+            self._quad_points = pts
+            self._quad_weights = wts
+            self._quad_moments = self.eval_moments(pts)
 
-        power = -np.dot(self._quad_moments, multipliers / self._moment_errs)
-        power = np.minimum(np.maximum(power, -200), 200)
-        q_gradient = self._quad_moments.T * np.exp(power)
-        integral = np.dot(q_gradient, self._quad_weights) / self._moment_errs
-        self._last_multipliers = multipliers
-        self._last_gradient = integral
+            power = -np.dot(self._quad_moments, multipliers / self._moment_errs)
+            power = np.minimum(np.maximum(power, -200), 200)
+            q_gradient = self._quad_moments.T * np.exp(power)
+            integral = np.dot(q_gradient, self._quad_weights) / self._moment_errs
+            self._last_multipliers = multipliers
+            self._last_gradient = integral
         return True
 
     # ------------------------------------------------------------------ #
@@ -480,14 +482,16 @@ class SimpleDistribution:
         gnorm = np.inf
         for _round in range(8):
             q_mom = self._quad_moments / self._moment_errs[None, :]
-            if self._solver_backend == "numpy":
-                lam_j, gnorm_j, nit = _newton_solve_np(
-                    q_mom, self._quad_weights, mu_scaled, lam, tol,
-                    max_iter=self._max_newton_iter)
-            else:
-                lam_j, gnorm_j, nit = _newton_solve(
-                    q_mom, self._quad_weights, mu_scaled, lam, tol,
-                    max_iter=self._max_newton_iter, device=self._device)
+            with profiling.span("density.newton"):
+                if self._solver_backend == "numpy":
+                    lam_j, gnorm_j, nit = _newton_solve_np(
+                        q_mom, self._quad_weights, mu_scaled, lam, tol,
+                        max_iter=self._max_newton_iter)
+                else:
+                    lam_j, gnorm_j, nit = _newton_solve(
+                        q_mom, self._quad_weights, mu_scaled, lam, tol,
+                        max_iter=self._max_newton_iter, device=self._device)
+            profiling.count("newton.iterations", int(nit))
             lam = np.array(lam_j)
             gnorm = float(gnorm_j)
             total_nit += int(nit)
@@ -508,14 +512,15 @@ class SimpleDistribution:
         result.success = gnorm <= tol * 8  # reference accepts jac_norm < tol
         result.message = "converged" if result.success else \
             "gradient norm {:g} > tol {:g}".format(gnorm, tol)
-        jac = self._calculate_jacobian_matrix(lam)
-        result.jac = self._calculate_gradient(lam)
-        result.solver_res = result.jac
-        result.eigvals = np.linalg.eigvalsh(jac)
+        with profiling.span("density.finish"):
+            jac = self._calculate_jacobian_matrix(lam)
+            result.jac = self._calculate_gradient(lam)
+            result.solver_res = result.jac
+            result.eigvals = np.linalg.eigvalsh(jac)
 
-        # Fix normalization: lambda_0 -= log(moment_0)
-        moment_0, _ = self._calculate_exact_moment(self.multipliers, m=0)
-        self.multipliers[0] -= np.log(moment_0)
+            # Fix normalization: lambda_0 -= log(moment_0)
+            moment_0, _ = self._calculate_exact_moment(self.multipliers, m=0)
+            self.multipliers[0] -= np.log(moment_0)
         if self._verbose:
             print("size: {} nits: {} tol: {:5.3g} res: {:5.3g}".format(
                 self.approx_size, result.nit, tol, gnorm))

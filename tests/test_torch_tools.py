@@ -277,8 +277,9 @@ def test_profiling_helpers(tmp_path, capsys):
     with profiling.device_trace(str(tmp_path / "trace")) as prof:
         torch.ones(32, 32).sum()
     assert prof is not None
-    files = os.listdir(tmp_path / "trace")
-    assert len(files) == 1 and files[0].endswith(".json")
+    files = sorted(os.listdir(tmp_path / "trace"))   # the trace, its counters
+    assert len(files) == 2 and files[1].endswith(".json")
+    assert files[0] == files[1][:-len(".json")] + ".counters.json"
 
 
 # --------------------------------------------------------------------- #
