@@ -48,51 +48,130 @@ def preconditioned_cg(matvec, M, b, tol, maxiter):
     ``|r|^2 <= tol^2 |b|^2`` (the rule of ``jax.scipy.sparse.linalg.cg``)
     or at ``maxiter``: its state is frozen by the ``active`` mask while the
     others iterate. The host looks at the mask every ``CG_CHECK_EVERY``
-    iterations, which changes the time and never the result. While
-    tracing, the loop's turns are counted (``cg.turns``).
+    iterations, which changes the time and never the result. On a CUDA
+    device the iterations between two checks run as one CUDA graph,
+    captured once per solve and replayed (``_cg_loop``); ``matvec`` and
+    ``M`` must then be device ops that never wait for the host. While
+    tracing, the loop's turns (``cg.turns``), the graphs captured
+    (``cg.graphs``) and the turns run inside a replay (``cg.graph_turns``)
+    are counted.
 
     :return: (solutions like ``b``, iterations taken per sample [B])
     """
     with profiling.span("sim.solve"):
-        x, iters, turns = _cg_loop(matvec, M, b, tol, int(maxiter))
+        x, iters, turns, graphs, graph_turns = _cg_loop(matvec, M, b, tol, int(maxiter))
     profiling.count("cg.turns", turns)
+    profiling.count("cg.graphs", graphs)
+    profiling.count("cg.graph_turns", graph_turns)
     return x, iters
+
+
+class _CGState:
+    """The CG loop's state in buffers that each turn updates in place, so
+    that a block of turns can be captured as a CUDA graph and replayed.
+    ``active`` holds the mask of the next turn, which the host checks."""
+
+    def __init__(self, matvec, M, b, tol):
+        self.matvec, self.M = matvec, M
+        self.dims = tuple(range(1, b.dim()))
+        self.lead = (-1,) + (1,) * len(self.dims)
+        self.atol2 = tol * tol * self.dot(b, b)          # [B]
+        self.x = torch.zeros_like(b)
+        self.r = b.clone()
+        z = M(self.r)
+        self.p = z.clone()
+        self.gamma = self.dot(self.r, z)
+        self.iters = torch.zeros(b.shape[0], dtype=torch.int64, device=b.device)
+        self.active = self.dot(self.r, self.r) > self.atol2
+
+    def dot(self, u, v):
+        return (u * v).sum(dim=self.dims)
+
+    def turns(self, n):
+        """``n`` turns of the loop: each value computed by the same op on
+        the same operands as a loop over fresh tensors would."""
+        x, r, p, gamma, active, lead = self.x, self.r, self.p, self.gamma, self.active, self.lead
+        for _ in range(n):
+            Ap = self.matvec(p)
+            alpha = (gamma / self.dot(p, Ap)).view(lead)
+            a = active.view(lead)
+            torch.where(a, x + alpha * p, x, out=x)
+            torch.where(a, r - alpha * Ap, r, out=r)
+            z = self.M(r)
+            gamma_new = self.dot(r, z)
+            torch.where(a, z + (gamma_new / gamma).view(lead) * p, p, out=p)
+            torch.where(active, gamma_new, gamma, out=gamma)
+            self.iters += active
+            torch.gt(self.dot(r, r), self.atol2, out=active)
+
+
+class _DeviceGraphs:
+    """What the CG's graphs share on one CUDA device: the side stream they
+    are captured on, one memory pool, and the last graph captured, which
+    keeps that pool alive between solves (a pool whose graphs are all gone
+    cannot take a new capture)."""
+
+    def __init__(self, device):
+        self.stream = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.last = None
+
+
+_device_graphs = {}     # CUDA device index -> _DeviceGraphs
+
+
+def _first_block_and_graph(state):
+    """Run the first ``CG_CHECK_EVERY`` turns eagerly on the device's side
+    stream (which also sets up cuBLAS and the allocator there), then
+    capture the same turns as a CUDA graph on that stream: the capture's
+    host work overlaps the first block on the device. -> the graph, whose
+    ``replay()`` runs the next block on the current stream."""
+    device = state.x.device
+    shared = _device_graphs.get(device.index)
+    if shared is None:
+        shared = _device_graphs[device.index] = _DeviceGraphs(device)
+    main = torch.cuda.current_stream(device)
+    shared.stream.wait_stream(main)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(shared.stream):
+        state.turns(CG_CHECK_EVERY)
+        with profiling.span("sim.cg_capture"):
+            graph.capture_begin(pool=shared.pool)
+            state.turns(CG_CHECK_EVERY)
+            graph.capture_end()
+    main.wait_stream(shared.stream)
+    shared.last = graph
+    return graph
 
 
 def _cg_loop(matvec, M, b, tol, maxiter):
     """The loop of ``preconditioned_cg``: (x, iterations per sample, the
-    loop's turns)."""
-    dims = tuple(range(1, b.dim()))
-    lead = (-1,) + (1,) * len(dims)
+    loop's turns, graphs captured, turns run inside a replay).
 
-    def dot(u, v):
-        return (u * v).sum(dim=dims)
-
-    atol2 = tol * tol * dot(b, b)                        # [B]
-    x = torch.zeros_like(b)
-    r = b
-    z = M(r)
-    p = z
-    gamma = dot(r, z)
-    iters = torch.zeros(b.shape[0], dtype=torch.int64, device=b.device)
-    for k in range(maxiter):
-        active = dot(r, r) > atol2
-        if k % CG_CHECK_EVERY == 0:
-            with profiling.span("sim.cg_check"):
-                done = not bool(active.any())
-            if done:
-                return x, iters, k
-        Ap = matvec(p)
-        alpha = (gamma / dot(p, Ap)).view(lead)
-        a = active.view(lead)
-        x = torch.where(a, x + alpha * p, x)
-        r = torch.where(a, r - alpha * Ap, r)
-        z = M(r)
-        gamma_new = dot(r, z)
-        p = torch.where(a, z + (gamma_new / gamma).view(lead) * p, p)
-        gamma = torch.where(active, gamma_new, gamma)
-        iters += active
-    return x, iters, maxiter
+    The host checks the active mask before every block of
+    ``CG_CHECK_EVERY`` turns. On a CUDA device, where at least two full
+    blocks fit in ``maxiter``, the first block runs eagerly and is
+    captured as a graph, and every later full block replays it; a solve
+    done at the next check drops its graph unreplayed. Elsewhere, and for
+    the turns past the last full block, the turns run eagerly."""
+    state = _CGState(matvec, M, b, tol)
+    graph = None
+    k = graph_turns = 0
+    while k < maxiter:
+        with profiling.span("sim.cg_check"):
+            done = not bool(state.active.any())
+        if done:
+            break
+        n = min(CG_CHECK_EVERY, maxiter - k)
+        if graph is not None and n == CG_CHECK_EVERY:
+            graph.replay()
+            graph_turns += n
+        elif k == 0 and b.is_cuda and maxiter >= 2 * CG_CHECK_EVERY:
+            graph = _first_block_and_graph(state)
+        else:
+            state.turns(n)
+        k += n
+    return state.x, state.iters, k, int(graph is not None), graph_turns
 
 
 class DarcyBatchEntryPoints:

@@ -120,6 +120,35 @@ def test_cg_turns_and_checks_count_the_loop_of_each_solve():
     assert counters["cg.turns"] == turns and totals["sim.cg_check"]["calls"] == checks
 
 
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_cg_graphs_count_the_replayed_blocks_on_the_card_only(device):
+    """On the card a solve that turns captures one graph and replays it for
+    each full block of ``CG_CHECK_EVERY`` turns after the first
+    (``cg.graphs``, ``cg.graph_turns``); on the CPU both stay 0. The turns
+    are counted as before either way."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs are captured only on the card")
+    sim = _darcy()
+    config = sim.level_instance([0.125], [0.25]).config_dict
+    draws = sim._keyed_draws(config, 5, 1, torch.arange(6), torch.zeros(6, dtype=torch.int64))
+    draws = {"noise": tuple(t.to(device) for t in draws["noise"])}
+    (_, _, it_fine, it_coarse), _, counters, _ = _profiled(
+        lambda: sim._calculate(config, **draws))
+    every = diffusion.CG_CHECK_EVERY
+    turns = graphs = graph_turns = 0
+    for its, n in ((it_fine, config["fine_n"]), (it_coarse, config["coarse_n"])):
+        maxiter = sim.CG_MAXITER_FACTOR * n
+        t = min(math.ceil(int(its.max()) / every) * every, maxiter)
+        turns += t
+        if device == "cuda" and t > 0:
+            graphs += 1
+            graph_turns += every * (t // every - 1)
+    assert counters["cg.turns"] == turns
+    assert counters["cg.graphs"] == graphs and counters["cg.graph_turns"] == graph_turns
+    if device == "cuda":
+        assert graph_turns > 0
+
+
 def test_cg_turns_count_a_solve_cut_at_maxiter():
     """Cut at ``maxiter`` the loop turns ``maxiter`` times and the host
     checked every E turns of them."""
