@@ -17,6 +17,12 @@ Reductions sum the local shards on ``devices[0]`` in shard order, in f64
 (floating fields) and int64 (counts), then all-reduce over the group:
 NCCL for a mesh of CUDA devices, gloo for a mesh of CPU devices. The
 result is the same on every shard, as JAX's ``psum`` with ``out_specs=P()``.
+
+While a profiler records (``tool/profiling``), ``reduce`` is the span
+``mesh.reduce``, each collective the span ``mesh.allreduce`` or
+``mesh.allgather`` inside it; the counter ``mesh.collectives`` counts the
+collective calls and ``mesh.reduce_bytes`` the bytes handed to
+``all_reduce``. No span waits for the device.
 """
 from typing import Optional
 
@@ -24,6 +30,7 @@ import torch
 import torch.distributed as dist
 
 from mlmc_tpu_torch.device import resolve_device
+from mlmc_tpu_torch.tool import profiling
 
 
 def backend_for(devices):
@@ -169,6 +176,10 @@ class SampleMesh:
         if len(per_shard) != self.n_local:
             raise ValueError("%d results for %d local shards"
                              % (len(per_shard), self.n_local))
+        with profiling.span("mesh.reduce"):
+            return self._reduce(per_shard)
+
+    def _reduce(self, per_shard):
         flat = [_flatten(r) for r in per_shard]
         rebuild = flat[0][1]
         leaves0 = flat[0][0]
@@ -186,7 +197,10 @@ class SampleMesh:
                 if not idx:
                     continue
                 buf = torch.cat([sums[j].reshape(-1) for j in idx])
-                dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group)
+                with profiling.span("mesh.allreduce"):
+                    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group)
+                profiling.count("mesh.collectives")
+                profiling.count("mesh.reduce_bytes", buf.numel() * buf.element_size())
                 pos = 0
                 for j in idx:
                     n = sums[j].numel()
@@ -211,7 +225,9 @@ class SampleMesh:
             is_bool = local.dtype == torch.bool
             send = local.to(torch.uint8) if is_bool else local.contiguous()
             parts = [torch.empty_like(send) for _ in range(self.world_size)]
-            dist.all_gather(parts, send, group=self.group)
+            with profiling.span("mesh.allgather"):
+                dist.all_gather(parts, send, group=self.group)
+            profiling.count("mesh.collectives")
             local = torch.cat(parts)
             if is_bool:
                 local = local.to(torch.bool)

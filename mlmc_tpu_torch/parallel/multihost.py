@@ -19,7 +19,9 @@ On each process::
         storage.save(...)              # host IO on process 0 only
 
 The backend follows the devices: NCCL for CUDA devices, gloo for the CPU
-(``devices=["cpu"]``); it is never swapped for the other.
+(``devices=["cpu"]``); it is never swapped for the other. Where
+``torchrun`` starts a process per card (``LOCAL_WORLD_SIZE`` > 1), a
+process's devices default to its own card, ``LOCAL_RANK``.
 """
 import os
 
@@ -30,12 +32,22 @@ from mlmc_tpu_torch.parallel.mesh import SampleMesh, backend_for
 
 
 def _local_devices(devices):
+    """``devices`` as given; None means the card ``LOCAL_RANK`` names where
+    ``torchrun`` started more than one process on this host
+    (``LOCAL_WORLD_SIZE`` > 1) and it names a visible card, else every
+    visible card (one process per host)."""
     if devices is not None:
         return list(devices)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is "
                            "false (pass devices=['cpu'] to run on the host)")
-    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    count = torch.cuda.device_count()
+    local_rank = os.environ.get("LOCAL_RANK", "")
+    per_host = os.environ.get("LOCAL_WORLD_SIZE", "")
+    if (per_host.isdigit() and int(per_host) > 1
+            and local_rank.isdigit() and int(local_rank) < count):
+        return [torch.device("cuda", int(local_rank))]
+    return [torch.device("cuda", i) for i in range(count)]
 
 
 def initialize(coordinator_address=None, num_processes=None, process_id=None,
@@ -49,7 +61,9 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
     :param num_processes: world size; None reads ``WORLD_SIZE``
     :param process_id: this process's rank; None reads ``RANK``
     :param devices: this process's devices, which choose the backend;
-        None means every visible CUDA device (NCCL)
+        None means this process's card where ``torchrun`` started a
+        process per card (``LOCAL_RANK``), else every visible CUDA device
+        (NCCL)
     """
     if num_processes is not None and int(num_processes) <= 1:
         return
@@ -96,7 +110,9 @@ def global_sample_mesh(devices=None) -> SampleMesh:
     """The ``samples`` mesh over this process's devices and every process
     of the world group.
 
-    :param devices: this process's devices; None = every visible CUDA device
+    :param devices: this process's devices; None = this process's card
+        where ``torchrun`` started a process per card (``LOCAL_RANK``),
+        else every visible CUDA device
     """
     return SampleMesh(_local_devices(devices))
 

@@ -14,10 +14,22 @@ import torch
 
 import mlmc_tpu_torch as mt
 from mlmc_tpu_torch.ops.fused_estimate import accumulators_to_estimates
+from mlmc_tpu_torch.parallel import SampleMesh, sharded_synth_pipeline
 from mlmc_tpu_torch.sim import diffusion
 from mlmc_tpu_torch.tool import profiling
 
 PREFIX = profiling.SPAN_PREFIX
+
+
+@pytest.fixture(autouse=True)
+def _live_working_directory(tmp_path, monkeypatch):
+    """Run in ``tmp_path``; from the tests' directory first where the
+    working directory is gone, since ``monkeypatch.chdir`` reads it."""
+    try:
+        os.getcwd()
+    except FileNotFoundError:
+        os.chdir(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.chdir(tmp_path)
 
 
 def _profiled(fn, activities=(torch.profiler.ProfilerActivity.CPU,)):
@@ -223,6 +235,57 @@ def test_device_trace_writes_the_counters_beside_the_trace(tmp_path):
     assert saved["spans"]["outer"]["calls"] == 1
     profiling.count("things")       # the trace has ended
     assert profiling.counters() == {"things": 3}
+
+
+@pytest.fixture
+def gloo_world(tmp_path):
+    """A one-process gloo world (the default group), torn down after the
+    test."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method="file://" + str(tmp_path / "store"),
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+MESH_STEPS = [0.5, 0.25, 0.125, 0.0625, 0.03125]
+MESH_R = 4
+
+
+def _mesh_step():
+    """One sharded headline step over two CPU shards of the world group."""
+    mesh = SampleMesh(["cpu", "cpu"])
+    assert mesh.group is not None
+    return sharded_synth_pipeline(mesh, MESH_R, [64] * 5, MESH_STEPS, domain=(-4.0, 4.0))(3)
+
+
+def test_mesh_reduce_opens_its_collectives_and_counts_their_bytes(gloo_world):
+    """One float64 and one int64 all-reduce inside the reduction; the
+    bytes are the five levels' sums, sums of squares and two Grams, and
+    their five counts."""
+    _, parents, counts, totals = _profiled(_mesh_step)
+    assert parents["mesh.allreduce"] == {PREFIX + "mesh.reduce"}
+    assert totals["mesh.reduce"]["calls"] == 1 and totals["mesh.allreduce"]["calls"] == 2
+    R = MESH_R
+    assert counts == {"mesh.collectives": 2,
+                      "mesh.reduce_bytes": 5 * (2 * R + 2 * R * R) * 8 + 5 * 8}
+
+
+def test_mesh_gather_opens_its_collective(gloo_world):
+    mesh = SampleMesh(["cpu", "cpu"])
+    out, parents, counts, _ = _profiled(
+        lambda: mesh.gather([torch.zeros(3, dtype=torch.bool), torch.ones(3, dtype=torch.bool)]))
+    assert out.tolist() == [False] * 3 + [True] * 3
+    assert "mesh.allgather" in parents and counts == {"mesh.collectives": 1}
+
+
+def test_mesh_records_nothing_without_a_profiler(gloo_world):
+    profiling.reset()
+    _mesh_step()
+    assert profiling.counters() == {} and profiling.spans() == {}
 
 
 @pytest.mark.cuda

@@ -76,3 +76,31 @@ def rank_main(rank, world, init_file, out_path):
         np.savez(out_path, **out)
     finally:
         dist.destroy_process_group()
+
+
+#: the synth5x4 deployment at a tiny size: two ranks, two CPU shards each
+DEPLOY_N = [4096, 2048, 1024]
+DEPLOY_MOMENTS = 6
+
+
+def deployment_rank_main(rank, world, init_file, out_path):
+    """Join the world over gloo with two CPU shards, run the sharded
+    headline step over the global mesh and save its reduced accumulators."""
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    from mlmc_tpu_torch.parallel import multihost, sharded_synth_pipeline
+
+    multihost.initialize("file://" + init_file, num_processes=world,
+                         process_id=rank, devices=["cpu"])
+    try:
+        mesh = multihost.global_sample_mesh(["cpu", "cpu"])
+        res = sharded_synth_pipeline(mesh, DEPLOY_MOMENTS, DEPLOY_N, STEPS,
+                                     domain=DOMAIN)(SEED)
+        out = {"n_devices": np.asarray(mesh.n_devices)}
+        for lvl, r in enumerate(res):
+            for f in r._fields:
+                out["%d_%s" % (lvl, f)] = getattr(r, f).numpy()
+        np.savez(out_path, **out)
+    finally:
+        dist.destroy_process_group()
