@@ -312,20 +312,26 @@ def _block_tables(n_per_level, x_offsets, has_coarse, span=SPAN, starts=None):
     part come first: they cost about twice as much as fine-only blocks,
     and started last they would leave the card's last wave half empty.
     ``starts`` offsets each level's sample indices (the RNG counter;
-    default 0), not its x offsets."""
-    blocks, lvl_blocks = [], [None] * len(n_per_level)
-    order = sorted(range(len(n_per_level)), key=lambda lvl: not has_coarse[lvl])
-    for lvl in order:
-        n = int(n_per_level[lvl])
-        n_blk = max(-(-n // span), 1)
-        lvl_blocks[lvl] = (len(blocks), n_blk)
-        first = 0 if starts is None else int(starts[lvl])
-        for b in range(n_blk):
-            start = b * span
-            blocks.append((lvl, first + start, max(min(span, n - start), 0),
-                           int(x_offsets[lvl]) + start))
-    return (np.asarray(blocks, dtype=np.int64),
-            np.asarray(lvl_blocks, dtype=np.int64))
+    default 0), not its x offsets.
+
+    Whole-array numpy in int64 (starts pass 2^34): the cost of a table of
+    tens of thousands of blocks is that of a few array operations."""
+    L = len(n_per_level)
+    order = sorted(range(L), key=lambda lvl: not has_coarse[lvl])
+    rows = np.array([(lvl, 0 if starts is None else int(starts[lvl]),
+                      int(n_per_level[lvl]), int(x_offsets[lvl])) for lvl in order],
+                    dtype=np.int64).reshape(L, 4)
+    n_blk = np.maximum(-(-rows[:, 2] // span), 1)
+    first_blk = np.cumsum(n_blk) - n_blk
+    blocks = np.repeat(rows, n_blk, axis=0)          # a level's row per block
+    start = (np.arange(blocks.shape[0], dtype=np.int64)
+             - np.repeat(first_blk, n_blk)) * span
+    blocks[:, 1] += start
+    blocks[:, 3] += start
+    np.clip(blocks[:, 2] - start, 0, span, out=blocks[:, 2])
+    lvl_blocks = np.empty((L, 2), np.int64)
+    lvl_blocks[order] = np.stack([first_blk, n_blk], axis=1)
+    return blocks, lvl_blocks
 
 
 def _check(code, what):
@@ -356,8 +362,9 @@ def synth_mlmc_cuda(x, seed, n_per_level, fine_steps, coarse_steps,
                 raise ValueError("x holds %d samples, levels need %d"
                                  % (x.numel(), sum(int(n) for n in n_per_level)))
         offsets = np.concatenate([[0], np.cumsum([int(n) for n in n_per_level])])
-        blocks, lvl_blocks = _block_tables(n_per_level, offsets[:-1], has_coarse,
-                                           starts=starts)
+        with profiling.span("kernels.tables"):
+            blocks, lvl_blocks = _block_tables(n_per_level, offsets[:-1],
+                                               has_coarse, starts=starts)
         lvl = np.asarray([(_f32(f), _f32(c), 1.0 if h else 0.0) for f, c, h in
                           zip(fine_steps, coarse_steps, has_coarse)],
                          dtype=np.float32)
@@ -536,8 +543,10 @@ def _samples_launch(fn_name, streams, n_moments, basis, consts, device):
             o < 0 or n < 0 or o + n > streams.fine.numel()
             for o, n in zip(streams.offsets, streams.counts)):
         raise ValueError("stream offsets/counts exceed the packed buffers")
-    blocks, stream_blocks = _block_tables(streams.counts, streams.offsets,
-                                          streams.has_coarse, span=SAMPLES_SPAN)
+    with profiling.span("kernels.tables"):
+        blocks, stream_blocks = _block_tables(streams.counts, streams.offsets,
+                                              streams.has_coarse,
+                                              span=SAMPLES_SPAN)
     hasc = np.asarray([1 if h else 0 for h in streams.has_coarse], np.int32)
     codes = _tile_schedule(R)
 
