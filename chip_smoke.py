@@ -238,7 +238,6 @@ darcy3d, sde_qmc, e2, e3 and e45 paths, print one JSON line of their own.
 """
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -299,14 +298,6 @@ def _fail(msg):
 def _require(cond, msg):
     if not cond:
         _fail(msg)
-
-
-def _smi(query):
-    out = subprocess.run(["nvidia-smi", "--query-gpu=" + query,
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    lines = out.stdout.strip().splitlines()
-    return lines[0] if lines else "nvidia-smi: " + out.stderr.strip()
 
 
 def _time_ms(torch, fn, reps=5):
@@ -629,7 +620,6 @@ def storage_free_path(torch, dev):
     print("kernel A memory mode (the precision guard's launch, %d stored f32 normals, "
           "R=25): %.3f ms vs plain %.3f ms (bound %.3f ms, %s)"
           % (N_PRECISION, m_ms, m_plain_ms, m_bound[0], m_bound[1]))
-    sm_mhz = float(_smi("clocks.max.sm").split()[0])
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     # kernel B: per Philox call (four normals), the instructions of one turn
     # of its loop in its SASS on the path that issues the fewest (the vector
@@ -638,7 +628,9 @@ def storage_free_path(torch, dev):
     # SM per clock; 16 bytes written
     from mlmc_tpu_torch.ops import _build
     from mlmc_tpu_torch.tool import kernel_sass
+    from mlmc_tpu_torch.tool.timing import smi
 
+    sm_mhz = float(smi("clocks.max.sm").split()[0])
     sass = kernel_sass.summary(_build.library_path("synth_mlmc"))
     _require(sorted(sass) == ["A NB=1", "A NB=2", "A NB=3", "A NB=4", "B"],
              "SASS: expected kernel A x 4 and kernel B, found %s" % sorted(sass))
@@ -770,7 +762,7 @@ def config4(dev, mt):
     mfn = mt.Legendre(8, (-10, 10))
     generic = qe.estimate_mean(qe.moments(sel, mfn))
     est = mt.Estimate(sel, storage, mfn)
-    packed = est._fast_results_packed(mfn, [0, 1])
+    packed = est._stream_results(mfn, [0, 1])           # [level, component, ...]
     # S_abs of each packed stream scales the f32 bound of the comparison
     s_abs = ck.samples_mlmc_plain(est._packed_streams(mfn, [0, 1]), 8,
                                   basis="legendre", absolute=True,
@@ -779,11 +771,11 @@ def config4(dev, mt):
     gen_means = np.asarray(generic.l_means).reshape(len(C4_LEVELS), 2, 8)
     worst = 0.0
     for m in range(2):
-        for lvl, r in enumerate(packed[m]):
-            n = int(r.n_valid)
+        for lvl in range(len(C4_LEVELS)):
+            n = int(packed.n_valid[lvl, m])
             _require(n == int(n_gen[lvl]), "config 4 n_valid level %d: packed "
                      "%d generic %d" % (lvl, n, n_gen[lvl]))
-            diff = np.abs(r.sums / n - gen_means[lvl, m])
+            diff = np.abs(packed.sums[lvl, m] / n - gen_means[lvl, m])
             tol = accumulation_error_bound(
                 s_abs.sums[m * len(C4_LEVELS) + lvl].cpu().numpy()) / n + 1e-12
             worst = max(worst, float(diff.max()))
@@ -820,8 +812,7 @@ def stored_path(torch, dev):
             _require(mean12.shape == (12, N_MOMENTS) and np.all(mean12[:, 0] == 1.0)
                      and np.all(np.isfinite(var12)), "structured fast-tier estimate")
             raw12, ns12 = est12.estimate_diff_vars_fast()
-            packed12 = est12._fast_results_packed(mfn, list(range(12)))
-            per_comp = np.array([[int(r.n_valid) for r in packed12[m]] for m in range(12)])
+            per_comp = est12._stream_results(mfn, list(range(12))).n_valid.T
             _require(np.all(per_comp == per_comp[0]) and per_comp[0].tolist() == ns12.tolist(),
                      "structured streams disagree in n_valid: %s" % per_comp.tolist())
             print("structured fast tier: 12 components x 5 levels in one launch; "
@@ -846,8 +837,7 @@ def stored_path(torch, dev):
             diff12 = float(np.max(np.abs(ext_mean12 - mean12)))
             _require(diff12 <= tol12, "structured f64 tier vs fast tier: max |mean "
                      "diff| %.3g > %.3g" % (diff12, tol12))
-            ext12 = est12._extended_results(mfn, list(range(12)))
-            per_comp = np.array([[r.n_valid for r in ext12[m]] for m in range(12)])
+            per_comp = est12._stream_results(mfn, list(range(12)), f64=True).n_valid.T
             _require(np.all(per_comp == per_comp[0]) and per_comp[0].tolist() == ns12.tolist(),
                      "structured f64 streams disagree in n_valid: %s" % per_comp.tolist())
             print("structured f64 tier: 12 components x 5 levels in one kernel D launch; "
@@ -1099,7 +1089,7 @@ def config2_shooting(torch, dev, mt):
         l1_launches = ck.samples_mlmc_cuda.launches - before
         _require(l1_launches == 1, "moment_pipeline_from_samples launched %d times"
                  % l1_launches)
-        packed0 = est._fast_results_packed(mfn, [0])[0][0]
+        packed0 = ck.SynthMomentResult(*(f[0, 0] for f in est._stream_results(mfn, [0])))
         _require(int(one.n_valid) == int(packed0.n_valid) and all(
             np.array_equal(getattr(one, f).cpu().numpy(), getattr(packed0, f))
             for f in ("sums", "sums2", "cov_fine")),
@@ -1744,10 +1734,10 @@ def sharded_path(torch, dev):
                                                   domain=DOMAIN)(*noise)
         fine_l, coarse_l = [], []
         for lvl, x in enumerate(noise):
-            err = ck._sqrt_f32(ck._ERR_FLOOR_F32 + x.abs())
-            fine_l.append(x + ck._f32(LEVEL_STEPS[lvl]) * err)
-            coarse_l.append(None if lvl == 0
-                            else x + ck._f32(LEVEL_STEPS[lvl - 1]) * err)
+            qoi_f, qoi_c = ck.synth_qoi(x, LEVEL_STEPS[lvl],
+                                        LEVEL_STEPS[lvl - 1] if lvl else 0.0)
+            fine_l.append(qoi_f)
+            coarse_l.append(qoi_c if lvl else None)
         streams = ck.pack_streams(fine_l, coarse_l, has_coarse)
         plain_c, s_abs_c = (ck.samples_mlmc_plain(
             streams, N_MOMENTS, basis="legendre",
@@ -3963,10 +3953,10 @@ def _e3_stored_mcmc(torch, dev, mt, out, res):
              and np.all(np.isfinite(raw[:, 1:])) and np.all(np.isfinite(var)),
              "stored MCMC estimate: n %s, mean[0] %r" % (ns.tolist(), mean[0]))
     scale, shift, offset = ck.transform_constants(domain, f64=True)[:3]
-    levels = est._extended_results(est._moments_fn, [0])[0]           # kernel D
+    levels = est._stream_results(est._moments_fn, [0], f64=True)       # kernel D
     got = []
-    for lv, r in enumerate(levels):
-        m1 = float(r.sums[1]) / float(r.n_valid)
+    for lv in range(levels.n_valid.shape[0]):
+        m1 = float(levels.sums[lv, 0, 1]) / float(levels.n_valid[lv, 0])
         got.append((m1 - offset) / scale + shift if lv == 0 else m1 / scale)
     want = [float(m[0]) for m in res["level_means"]]
     rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
@@ -4611,10 +4601,10 @@ def _e45_stored_pod(torch, dev, mt, out, pod):
              and np.all(np.isfinite(raw[:, 1:])) and np.all(np.isfinite(var)),
              "stored POD estimate: n %s, mean[0] %r" % (ns.tolist(), mean[0]))
     scale, shift, offset = ck.transform_constants(domain, f64=True)[:3]
-    levels = est._extended_results(est._moments_fn, [0])[0]           # kernel D
+    levels = est._stream_results(est._moments_fn, [0], f64=True)       # kernel D
     got = []
-    for lv, r in enumerate(levels):
-        m1 = float(r.sums[1]) / float(r.n_valid)
+    for lv in range(levels.n_valid.shape[0]):
+        m1 = float(levels.sums[lv, 0, 1]) / float(levels.n_valid[lv, 0])
         got.append((m1 - offset) / scale + shift if lv == 0 else m1 / scale)
     want = [float(pairs[0][0].mean()), float((pairs[1][0] - pairs[1][1]).mean())]
     rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
@@ -4717,11 +4707,12 @@ def main():
               "are missing")
     sys.path.insert(0, HERE)
     from mlmc_tpu_torch.ops import _build
+    from mlmc_tpu_torch.tool.timing import smi
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(_smi("name,power.limit"))
+    print(smi("name,power.limit"))
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                      torch.cuda.get_device_name(0)))
     with Phase(torch, "kernel build (parallel nvcc) + load"):
@@ -4747,7 +4738,7 @@ def main():
                 k["launches"] += counts[k["name"]]
                 k["max_abs_err"] = max(k["max_abs_err"], errs.get(k["name"], 0.0))
             kernels.append(k)
-    print(_smi("name,power.limit"))
+    print(smi("name,power.limit"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

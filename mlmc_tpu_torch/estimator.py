@@ -10,9 +10,10 @@
   (``ops/cuda_kernels.samples_moments``): ``estimate_moments_fast``,
   ``estimate_covariance_fast``, ``estimate_diff_vars_fast`` and
   ``construct_density_fast``;
-* the f64 tier: the same streams through kernel D
-  (``ops/cuda_extended``): ``estimate_moments_extended`` and
-  ``estimate_covariance_extended``;
+* the f64 tier: the same streams through kernel D (``samples_moments``
+  with ``f64``): ``estimate_moments_extended`` and
+  ``estimate_covariance_extended``. Both tiers fetch the stacked result
+  once per field and telescope it by ``ops/fused_estimate.telescope``;
 * the log-quadratic variance regression, the maxent density and the
   domain estimate.
 
@@ -33,8 +34,8 @@ import numpy as np
 import torch
 
 import mlmc_tpu_torch.quantity.quantity_estimate as qe
-from mlmc_tpu_torch.ops import cuda_extended as cx
 from mlmc_tpu_torch.ops import cuda_kernels as ck
+from mlmc_tpu_torch.ops import fused_estimate as fe
 from mlmc_tpu_torch.quantity.quantity import as_tensor
 from mlmc_tpu_torch.quantity.quantity_types import ScalarType
 from mlmc_tpu_torch.tool import profiling
@@ -178,17 +179,14 @@ class Estimate:
                     hasc.append(lvl > 0)
             return ck.pack_streams(fine, coarse, hasc)
 
-    @staticmethod
-    def _split(results, components, n_levels):
-        return {m: results[i * n_levels:(i + 1) * n_levels]
-                for i, m in enumerate(components)}
+    def _stream_results(self, moments_fn, components, f64=False):
+        """Accumulators of every (component, level) stream from ONE launch
+        of kernel C (the fast tier) or, with ``f64``, kernel D (the f64
+        tier): the DAG is evaluated, harmonized and packed on the device,
+        every stream reduced together, and the stacked result fetched once
+        per field.
 
-    def _fast_results_packed(self, moments_fn, components):
-        """Kernel C accumulators for MANY QoI components in ONE launch: the
-        DAG is evaluated, harmonized and packed on the device, then every
-        (component, level) stream is reduced together.
-
-        :return: {component: [SynthMomentResult (numpy) per level]}
+        :return: SynthMomentResult of host arrays [L, len(components), ...]
         """
         basis = self._fast_basis(moments_fn)
         streams = self._packed_streams(moments_fn, components)
@@ -196,12 +194,22 @@ class Estimate:
             out = ck.samples_moments(
                 streams, moments_fn.size, domain=tuple(moments_fn.domain),
                 ref_domain=tuple(float(v) for v in moments_fn.ref_domain),
-                basis=basis)
+                basis=basis, f64=f64)
         with profiling.span("estimate.fetch"):
             host = [f.cpu().numpy() for f in out]  # one fetch per field
-        flat = [ck.SynthMomentResult(*(f[s] for f in host))
-                for s in range(len(streams.counts))]
-        return self._split(flat, components, self._sample_storage.get_n_levels())
+        # the streams are component-major
+        shape = (len(components), self._sample_storage.get_n_levels())
+        return ck.SynthMomentResult(*(f.reshape(shape + f.shape[1:]).swapaxes(0, 1)
+                                      for f in host))
+
+    def _telescoped(self, moments_fn, f64=False):
+        """``fused_estimate.telescope`` of every component of the quantity
+        from one launch of kernel C or (``f64``) D; the entries of a
+        structured quantity carry a component axis after the level axis."""
+        moments_fn = self._resolve_moments(moments_fn)
+        scalar, M = self._n_components()
+        acc = self._stream_results(moments_fn, list(range(M)), f64)
+        return fe.telescope(*(f[:, 0] if scalar else f for f in acc))
 
     def estimate_covariance_fast(self, moments_fn=None):
         """Fast-tier telescoped moment covariance from one kernel C launch.
@@ -209,48 +217,20 @@ class Estimate:
         Scalar quantities return ``([R, R], [R])`` (covariance, means);
         structured quantities per-component blocks ``([M, R, R], [M, R])``.
         """
-        moments_fn = self._resolve_moments(moments_fn)
-        scalar, M = self._n_components()
-        R = moments_fn.size
-        packed = self._fast_results_packed(moments_fn, list(range(M)))
-        cov = np.zeros((M, R, R))
-        mean = np.zeros((M, R))
-        for m in range(M):
-            for lvl, r in enumerate(packed[m]):
-                n = max(float(r.n_valid), 1.0)
-                cf = np.asarray(r.cov_fine, dtype=np.float64) / n
-                cc = np.asarray(r.cov_coarse, dtype=np.float64) / n
-                cov[m] += cf - cc if lvl > 0 else cf
-                mean[m] += np.asarray(r.sums, dtype=np.float64) / n
-        if scalar:
-            return cov[0], mean[0]
-        return cov, mean
-
-    def _density(self, cov, mean, tol, reg_param, orth_moments_tol):
-        """Maxent density from a moment covariance and means: orthogonalize
-        the basis, rotate the means, Newton solve on the estimation
-        device."""
-        import mlmc_tpu_torch.tool.simple_distribution as sd
-
-        with profiling.span("density.orth"):
-            moments_obj, info = sd.construct_ortogonal_moments(
-                self._moments_fn, cov, tol=orth_moments_tol)
-        mu = info[2] @ mean
-        moments_data = np.stack((mu[:moments_obj.size],
-                                 np.ones(moments_obj.size)), axis=1)
-        distr_obj = sd.SimpleDistribution(moments_obj, moments_data,
-                                          domain=moments_obj.domain,
-                                          device=self.device)
-        result = distr_obj.estimate_density_minimize(tol, reg_param)
-        return distr_obj, info, result, moments_obj
+        est = self._telescoped(moments_fn)
+        return est["cov"], est["mean"]
 
     def construct_density_fast(self, tol=1e-8, reg_param=0.0,
                                orth_moments_tol=1e-4):
         """Maxent density from STORED samples on the fast tier: one kernel C
         launch gives the moment means and covariance; the orthogonalized
         means follow linearly (mu_orth = L @ mu)."""
+        import mlmc_tpu_torch.tool.simple_distribution as sd
+
         cov, mean = self.estimate_covariance_fast(self._moments_fn)
-        return self._density(cov, mean, tol, reg_param, orth_moments_tol)
+        return sd.density_from_moments(
+            self._moments_fn, cov, mean, tol=tol, reg_param=reg_param,
+            orth_moments_tol=orth_moments_tol, device=self.device)
 
     def estimate_moments_fast(self, moments_fn=None):
         """Fast tier: moment means/vars of every component from one kernel
@@ -258,50 +238,8 @@ class Estimate:
 
         :return: (moment means [R] or [M, R], estimator variances same shape)
         """
-        moments_fn = self._resolve_moments(moments_fn)
-        self._fast_basis(moments_fn)  # fail fast before the gather
-        scalar, M = self._n_components()
-        R = moments_fn.size
-        n_levels = self._sample_storage.get_n_levels()
-        sums = np.zeros((n_levels, M, R))
-        sums2 = np.zeros((n_levels, M, R))
-        n_valid = np.zeros((n_levels, M))
-        packed = self._fast_results_packed(moments_fn, list(range(M)))
-        for m in range(M):
-            for lvl, r in enumerate(packed[m]):
-                sums[lvl, m] = r.sums
-                sums2[lvl, m] = r.sums2
-                n_valid[lvl, m] = float(r.n_valid)
-
-        n = n_valid[:, :, None]
-        with np.errstate(divide="ignore", invalid="ignore"):
-            l_means = np.where(n > 0, sums / np.maximum(n, 1), 0.0)
-            l_vars = np.where(
-                n > 1,
-                (sums2 - sums * sums / np.maximum(n, 1)) / np.maximum(n - 1, 1),
-                np.inf)
-        mean = l_means.sum(axis=0)
-        var = (l_vars / np.maximum(n, 1)).sum(axis=0)
-        if scalar:
-            return mean[0], var[0]
-        return mean, var
-
-    def _extended_results(self, moments_fn, components):
-        """Per-(component, level) ExtendedMomentResult from ONE kernel D
-        launch over every stream.
-
-        :return: {component: [ExtendedMomentResult per level]}
-        """
-        basis = self._fast_basis(moments_fn)
-        streams = self._packed_streams(moments_fn, components)
-        with profiling.span("estimate.launch"):
-            out = cx.samples_ext_moments(
-                streams, moments_fn.size, domain=tuple(moments_fn.domain),
-                ref_domain=tuple(float(v) for v in moments_fn.ref_domain),
-                basis=basis)
-        with profiling.span("estimate.fetch"):
-            flat = [cx.to_host(out, s) for s in range(len(streams.counts))]
-        return self._split(flat, components, self._sample_storage.get_n_levels())
+        est = self._telescoped(moments_fn)
+        return est["mean"], est["var"]
 
     def estimate_moments_extended(self, moments_fn=None):
         """f64-tier moment means/vars (kernel D) on the stored f32 samples;
@@ -309,42 +247,14 @@ class Estimate:
 
         :return: (moment means [R] or [M, R], estimator variances)
         """
-        moments_fn = self._resolve_moments(moments_fn)
-        scalar, M = self._n_components()
-        R = moments_fn.size
-        results = self._extended_results(moments_fn, list(range(M)))
-        mean = np.zeros((M, R))
-        var = np.zeros((M, R))
-        for m in range(M):
-            for r in results[m]:
-                n = max(float(r.n_valid), 1.0)
-                mean[m] += r.sums / n
-                if r.n_valid > 1:
-                    var[m] += (r.sums2 - r.sums * r.sums / n) / (n - 1) / n
-                else:
-                    var[m] = np.inf
-        if scalar:
-            return mean[0], var[0]
-        return mean, var
+        est = self._telescoped(moments_fn, f64=True)
+        return est["mean"], est["var"]
 
     def estimate_covariance_extended(self, moments_fn=None):
         """f64-tier telescoped moment covariance (+ means); shapes match
         estimate_covariance_fast."""
-        moments_fn = self._resolve_moments(moments_fn)
-        scalar, M = self._n_components()
-        R = moments_fn.size
-        results = self._extended_results(moments_fn, list(range(M)))
-        cov = np.zeros((M, R, R))
-        mean = np.zeros((M, R))
-        for m in range(M):
-            for lvl, r in enumerate(results[m]):
-                n = max(float(r.n_valid), 1.0)
-                cov[m] += (r.cov_fine - r.cov_coarse if lvl > 0
-                           else r.cov_fine) / n
-                mean[m] += r.sums / n
-        if scalar:
-            return cov[0], mean[0]
-        return cov, mean
+        est = self._telescoped(moments_fn, f64=True)
+        return est["cov"], est["mean"]
 
     def estimate_diff_vars(self, moments_fn=None):
         """:return: (level diff variances [L, R], n_samples [L])"""
@@ -360,24 +270,12 @@ class Estimate:
 
         :return: (level diff variances, n_samples [L])
         """
-        moments_fn = self._resolve_moments(moments_fn)
-        scalar, M = self._n_components()
-        R = moments_fn.size
-        L = self._sample_storage.get_n_levels()
-        packed = self._fast_results_packed(moments_fn, list(range(M)))
-        l_vars = np.full((L, M, R), np.inf)
-        ns = np.zeros(L, dtype=int)
-        for m in range(M):
-            for lvl, r in enumerate(packed[m]):
-                n = float(r.n_valid)
-                # every component reports the same count: structured
-                # streams share any-component validity
-                ns[lvl] = int(n)
-                if n > 1:
-                    s = np.asarray(r.sums, dtype=np.float64)
-                    s2 = np.asarray(r.sums2, dtype=np.float64)
-                    l_vars[lvl, m] = (s2 - s * s / n) / (n - 1)
-        return (l_vars[:, 0, :] if scalar else l_vars.reshape(L, M * R)), ns
+        est = self._telescoped(moments_fn)
+        L = est["l_vars"].shape[0]
+        # every component reports the same count: structured streams share
+        # any-component validity
+        return (est["l_vars"].reshape(L, -1),
+                est["n_samples"].reshape(L, -1)[:, 0].astype(int))
 
     def estimate_diff_vars_regression(self, n_created_samples, moments_fn=None, raw_vars=None):
         """Smooth level variances by the log-quadratic regression model."""

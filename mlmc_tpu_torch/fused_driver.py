@@ -137,22 +137,18 @@ class FusedMLMC:
     def construct_density(self, tol=1e-8, orth_moments_tol=1e-7):
         """Maxent PDF from the accumulated moment/covariance state:
         orthogonalize the basis against the sampled covariance, rotate the
-        mean estimates, solve (on this driver's device).
+        mean estimates, solve (on this driver's device), with
+        ``SimpleDistribution``'s default regularization (0.01), as
+        ``mlmc_tpu``'s driver.
 
         :return: (SimpleDistribution, info, solver result, orthogonal basis)
         """
         import mlmc_tpu_torch.tool.simple_distribution as sd
 
         est = self.estimates()
-        orto, info = sd.construct_ortogonal_moments(
-            self._moments_fn, est["cov"], tol=orth_moments_tol)
-        mu = info[2] @ est["mean"]
-        moments_data = np.stack((mu[:orto.size], np.ones(orto.size)), axis=1)
-        distr_obj = sd.SimpleDistribution(orto, moments_data,
-                                          domain=orto.domain,
-                                          device=self._device)
-        result = distr_obj.estimate_density_minimize(tol)
-        return distr_obj, info, result, orto
+        return sd.density_from_moments(
+            self._moments_fn, est["cov"], est["mean"], tol=tol, reg_param=0.01,
+            orth_moments_tol=orth_moments_tol, device=self._device)
 
     # ------------------------------------------------------------------ #
     # checkpoint / resume: accumulators and stream positions, with the

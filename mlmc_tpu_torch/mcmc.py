@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from mlmc_tpu_torch.device import resolve_device
-from mlmc_tpu_torch.ops.cuda_kernels import _key_words, philox4x32_10
+from mlmc_tpu_torch.ops.cuda_kernels import key_words, philox4x32_10
 from mlmc_tpu_torch.random.keyed import WIDE
 from mlmc_tpu_torch.sim.diffusion import DiffusionSimulation, _wave_vectors_2d
 
@@ -150,7 +150,7 @@ class KeyedChainDraws:
         self.d, self.dtype = int(d), dtype
         self.device = resolve_device(device)
         self.stream, self.fanout = int(stream), tuple(int(f) for f in fanout)
-        self._key = _key_words(seed)
+        self._key = key_words(seed)
         self._chains = torch.arange(int(n_chains), dtype=torch.int64, device=self.device)
         self._calls = -(-self.d // 2)
         self._blocks = {}

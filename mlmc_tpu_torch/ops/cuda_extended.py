@@ -12,12 +12,13 @@ reference (``ops/precision.f64_reference_moments_strict``) within
 
 ``symmetric`` selects the transform of the strict reference,
 t = (x - (a + b)/2) * scale, instead of t = (x - a) * scale + ref_lo.
-Results come back to the host as f64 numpy arrays, as in ``mlmc_tpu``.
+Kernel D is reached, as kernel C, through ``cuda_kernels.samples_moments``
+(``f64=True``). Results come back to the host as f64 numpy arrays, as in
+``mlmc_tpu``.
 """
 from typing import NamedTuple
 
 import numpy as np
-import torch
 
 from mlmc_tpu_torch.device import resolve_device
 from mlmc_tpu_torch.ops import cuda_kernels as ck
@@ -39,8 +40,8 @@ def samples_ext_cuda(streams, n_moments, *, basis, consts, device):
     :param consts: f64 ``transform_constants``
     :return: stacked SynthMomentResult [S, ...] (float64, int64 counts)
     """
-    out = ck._samples_launch("samples_ext_launch", streams, n_moments, basis,
-                             consts, device)
+    out = ck.samples_launch("samples_ext_launch", streams, n_moments, basis,
+                            consts, device)
     samples_ext_cuda.launches += 1
     return out
 
@@ -63,19 +64,6 @@ def reset_launch_counts():
     samples_ext_cuda.launches = 0
 
 
-def samples_ext_moments(streams, n_moments, *, domain, ref_domain=(-1.0, 1.0),
-                        basis="legendre", symmetric=False):
-    """Kernel D for streams on a CUDA device, its plain version for
-    streams on the CPU; stacked SynthMomentResult [S, ...]."""
-    ck._check_basis(basis, n_moments)
-    consts = ck.transform_constants(domain, ref_domain, f64=True,
-                                    symmetric=symmetric)
-    if streams.fine.device.type == "cuda":
-        return samples_ext_cuda(streams, n_moments, basis=basis,
-                                consts=consts, device=streams.fine.device)
-    return samples_ext_plain(streams, n_moments, basis=basis, consts=consts)
-
-
 def to_host(stacked, s=0):
     """Stream ``s`` of a stacked result as an ExtendedMomentResult."""
     fields = [getattr(stacked, f)[s].cpu().numpy()
@@ -96,30 +84,24 @@ def moment_pipeline_from_samples_extended(fine, coarse, n_moments, *, domain,
         device for numpy input)
     :return: ExtendedMomentResult (host f64)
     """
-    device = resolve_device(device, like=fine)
-    f = ck._as_f32_tensor(fine, device)
-    c = None if is_level0 or coarse is None else ck._as_f32_tensor(coarse,
-                                                                   device)
-    streams = ck.pack_streams([f], [c], [not is_level0])
-    return to_host(samples_ext_moments(
+    streams = ck.level_stream(fine, coarse, is_level0=is_level0, device=device)
+    return to_host(ck.samples_moments(
         streams, int(n_moments), domain=domain, ref_domain=ref_domain,
-        basis=basis, symmetric=symmetric))
+        basis=basis, f64=True, symmetric=symmetric))
 
 
 def synth_moment_pipeline_from_noise_extended(noise, n_moments, *,
                                               fine_step, coarse_step, domain,
                                               is_level0=False, device=None):
     """The f64 tier of the synthetic level from normals ``noise``: the QoIs
-    x + h*sqrt(1e-4 + |x|) in f32 (correctly rounded square root), then
-    kernel D with the symmetric Legendre transform.
+    of ``cuda_kernels.synth_qoi`` (f32), then kernel D with the symmetric
+    Legendre transform.
 
     :return: ExtendedMomentResult (host f64)
     """
     device = resolve_device(device, like=noise)
-    x = ck._as_f32_tensor(noise, device)
-    err = ck._sqrt_f32(ck._ERR_FLOOR_F32 + torch.abs(x))
-    fine = x + ck._f32(fine_step) * err
-    coarse = x + ck._f32(coarse_step) * err
+    fine, coarse = ck.synth_qoi(ck.as_f32_tensor(noise, device), fine_step,
+                                coarse_step)
     return moment_pipeline_from_samples_extended(
         fine, coarse, n_moments, domain=domain, basis="legendre",
         is_level0=is_level0, symmetric=True, device=device)

@@ -1,5 +1,5 @@
 """Sample -> moment kernels on the GPU: synthetic samples (kernels A, B)
-and stored QoI samples (kernel C).
+and stored QoI samples (kernels C and D).
 
 Counterpart of ``mlmc_tpu/ops/pallas_kernels.py``. Each entry point takes
 the same arguments as its Pallas twin plus a ``device`` (default: the
@@ -26,7 +26,8 @@ Kernel C (``samples_mlmc_cuda``) computes the same five accumulators from
 stored fine/coarse QoI streams (``SampleStreams``): every (component,
 level) stream in one launch, with the transform t = (x - a)·scale + ref_lo
 and Legendre, monomial or Fourier rows in f32, as ``_samples_mlmc_kernel``
-does. Its f64 twin, kernel D, lives in ``ops/cuda_extended.py``.
+does. Its f64 twin, kernel D, is launched from ``ops/cuda_extended.py``;
+``samples_moments`` is the one dispatcher of both tiers.
 
 Random numbers: sample ``i`` of level ``l`` under ``seed`` is slot
 ``j = i & 3`` of Philox4x32-10 call ``q = i >> 2``, with key (seed low
@@ -63,7 +64,7 @@ SPAN = 1 << 16
 #: samples per step of the plain version's chunk loop
 PLAIN_CHUNK = 1 << 20
 
-_MASK32 = 0xFFFFFFFF
+MASK32 = 0xFFFFFFFF
 PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 _TWO_PI_F32 = float(np.float32(6.283185307179586))
@@ -97,7 +98,7 @@ def _mulhilo(a, m):
     p_lo = a * (m & 0xFFFF)
     p_hi = a * (m >> 16)
     s = p_lo + ((p_hi & 0xFFFF) << 16)
-    return (p_hi >> 16) + (s >> 32), s & _MASK32
+    return (p_hi >> 16) + (s >> 32), s & MASK32
 
 
 def philox4x32_10(counter, key):
@@ -111,8 +112,8 @@ def philox4x32_10(counter, key):
     k0, k1 = key
     for rnd in range(10):
         if rnd > 0:
-            k0 = (k0 + PHILOX_W0) & _MASK32
-            k1 = (k1 + PHILOX_W1) & _MASK32
+            k0 = (k0 + PHILOX_W0) & MASK32
+            k1 = (k1 + PHILOX_W1) & MASK32
         hi0, lo0 = _mulhilo(c0, PHILOX_M0)
         hi1, lo1 = _mulhilo(c2, PHILOX_M1)
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
@@ -133,9 +134,10 @@ def box_muller(bits0, bits1):
     return r * torch.cos(angle), r * torch.sin(angle)
 
 
-def _key_words(seed):
+def key_words(seed):
+    """The Philox key of a 64-bit seed: its (low, high) uint32 words."""
     seed = int(seed) & 0xFFFFFFFFFFFFFFFF
-    return seed & _MASK32, seed >> 32
+    return seed & MASK32, seed >> 32
 
 
 def philox_normals(seed, level, start, n, *, device=None):
@@ -146,8 +148,8 @@ def philox_normals(seed, level, start, n, *, device=None):
     quads = torch.arange(start >> 2, (start + n + 3) >> 2, dtype=torch.int64,
                          device=device)
     zero = torch.zeros_like(quads)
-    w = philox4x32_10((quads & _MASK32, quads >> 32, zero + int(level), zero),
-                      _key_words(seed))
+    w = philox4x32_10((quads & MASK32, quads >> 32, zero + int(level), zero),
+                      key_words(seed))
     z = torch.stack(box_muller(w[0], w[1]) + box_muller(w[2], w[3]), dim=1)
     return z.reshape(-1)[start & 3:(start & 3) + n]
 
@@ -220,6 +222,18 @@ def _row_sums(pf, pc, absolute=False):
     return d.sum(0), (d * d).sum(0), pf.T @ pf, cov_c
 
 
+def synth_qoi(x, fine_step, coarse_step):
+    """The synthetic simulation's (fine, coarse) QoIs x + h sqrt(1e-4 + |x|)
+    of normals ``x`` in f32, as kernel A computes them: steps and floor
+    rounded to f32, the correctly rounded f32 square root.
+
+    :return: (fine, coarse) float32 tensors shaped as ``x``
+    """
+    x = x.to(torch.float32)
+    err = _sqrt_f32(_ERR_FLOOR_F32 + torch.abs(x))
+    return x + _f32(fine_step) * err, x + _f32(coarse_step) * err
+
+
 def level_moments_plain(x, n_moments, *, fine_step, coarse_step, has_coarse,
                         domain, absolute=False):
     """Plain version of kernel A's body for one block of samples ``x``.
@@ -228,10 +242,7 @@ def level_moments_plain(x, n_moments, *, fine_step, coarse_step, has_coarse,
     :return: (sums, sums2, cov_f, cov_c) float64 and n_valid int64
     """
     t_scale, t_shift = _domain_map(domain)
-    x = x.to(torch.float32)
-    err = _sqrt_f32(_ERR_FLOOR_F32 + torch.abs(x))
-    fine = x + _f32(fine_step) * err
-    coarse = x + _f32(coarse_step) * err
+    fine, coarse = synth_qoi(x, fine_step, coarse_step)
     t_f = (fine - t_shift) * t_scale
     t_c = (coarse - t_shift) * t_scale
     valid = (t_f >= -1.0) & (t_f <= 1.0)
@@ -370,7 +381,7 @@ def synth_mlmc_cuda(x, seed, n_per_level, fine_steps, coarse_steps,
                          dtype=np.float32)
         codes = _tile_schedule(R)
         t_scale, t_shift = _domain_map(domain)
-        k0, k1 = _key_words(seed)
+        k0, k1 = key_words(seed)
 
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -414,7 +425,7 @@ def normals_dump_cuda(seed, n_samples, *, level=0, start=0, device):
     head = int(start) & 3
     out = torch.empty(int(n_samples) + head, dtype=torch.float32,
                       device=device)[head:]
-    k0, k1 = _key_words(seed)
+    k0, k1 = key_words(seed)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         _check(lib.normals_dump_launch(out.data_ptr(), int(n_samples),
@@ -527,8 +538,10 @@ def samples_plain(streams, n_moments, *, basis, consts, f64=False,
     return out
 
 
-def _samples_launch(fn_name, streams, n_moments, basis, consts, device):
-    """Launch kernel C or D (``fn_name``) and its per-stream reduction."""
+def samples_launch(fn_name, streams, n_moments, basis, consts, device):
+    """Launch kernel C or D (``fn_name``, its C symbol) and its per-stream
+    reduction; ``samples_mlmc_cuda`` and ``cuda_extended.samples_ext_cuda``
+    count their launches over it."""
     device = cuda_device(device)
     lib = load_library("samples_mlmc")
     for x in (streams.fine, streams.coarse):
@@ -582,8 +595,8 @@ def samples_mlmc_cuda(streams, n_moments, *, basis, consts, device):
     :param consts: f32 ``transform_constants``
     :return: stacked SynthMomentResult [S, ...] (float64, int64 counts)
     """
-    out = _samples_launch("samples_mlmc_launch", streams, n_moments, basis,
-                          consts, device)
+    out = samples_launch("samples_mlmc_launch", streams, n_moments, basis,
+                         consts, device)
     samples_mlmc_cuda.launches += 1
     return out
 
@@ -598,15 +611,28 @@ def samples_mlmc_plain(streams, n_moments, *, basis, consts, absolute=False):
 
 
 def samples_moments(streams, n_moments, *, domain, ref_domain=(-1.0, 1.0),
-                    basis="legendre"):
-    """Kernel C for streams on a CUDA device, its plain version for
-    streams on the CPU; stacked SynthMomentResult [S, ...]."""
+                    basis="legendre", f64=False, symmetric=False):
+    """The one way from packed streams to kernels C and D: kernel C (the
+    f32 tier) or, with ``f64``, kernel D (the f64 tier; ``symmetric``
+    selects the strict reference's transform) for streams on a CUDA
+    device, their plain version for streams on the CPU.
+
+    :return: stacked SynthMomentResult [S, ...]
+    """
     _check_basis(basis, n_moments)
-    consts = transform_constants(domain, ref_domain)
-    if streams.fine.device.type == "cuda":
-        return samples_mlmc_cuda(streams, n_moments, basis=basis,
-                                 consts=consts, device=streams.fine.device)
-    return samples_mlmc_plain(streams, n_moments, basis=basis, consts=consts)
+    if symmetric and not f64:
+        raise ValueError("the symmetric transform is the f64 tier's")
+    consts = transform_constants(domain, ref_domain, f64=f64,
+                                 symmetric=symmetric)
+    if streams.fine.device.type != "cuda":
+        return samples_plain(streams, n_moments, basis=basis, consts=consts,
+                             f64=f64)
+    if f64:  # kernel D's launcher imports this module
+        from mlmc_tpu_torch.ops.cuda_extended import samples_ext_cuda as launch
+    else:
+        launch = samples_mlmc_cuda
+    return launch(streams, n_moments, basis=basis, consts=consts,
+                  device=streams.fine.device)
 
 
 def launch_counts():
@@ -682,7 +708,7 @@ def synth_mlmc_pipeline(seed, n_moments, n_per_level, level_steps, *,
         int(n_moments), domain, resolve_device(device), starts=starts))
 
 
-def _as_f32_tensor(x, device):
+def as_f32_tensor(x, device):
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32).reshape(-1)
     return torch.as_tensor(np.asarray(x, dtype=np.float32).reshape(-1),
@@ -703,7 +729,7 @@ def synth_mlmc_pipeline_from_noise(noise_per_level, n_moments, level_steps, *,
             "noise_per_level has %d entries but level_steps has %d"
             % (len(noise_per_level), len(level_steps)))
     device = resolve_device(device, like=noise_per_level[0])
-    xs = [_as_f32_tensor(x, device) for x in noise_per_level]
+    xs = [as_f32_tensor(x, device) for x in noise_per_level]
     fine, coarse, has_coarse = _ladder(level_steps)
     return _per_level(_synth_levels(
         xs, 0, [x.numel() for x in xs], fine, coarse, has_coarse,
@@ -731,7 +757,7 @@ def synth_moment_pipeline_from_noise(noise, n_moments, *, fine_step,
     :return: SynthMomentResult
     """
     device = resolve_device(device, like=noise)
-    x = _as_f32_tensor(noise, device)
+    x = as_f32_tensor(noise, device)
     return _per_level(_synth_levels(
         [x], 0, [x.numel()], [float(fine_step)], [float(coarse_step)],
         [not is_level0], int(n_moments), domain, device))[0]
@@ -749,6 +775,20 @@ def synth_normals(seed, n_samples, *, level=0, start=0, device=None):
     return philox_normals(seed, level, start, n_samples, device=device)
 
 
+def level_stream(fine, coarse, *, is_level0, device=None):
+    """One level's stored QoIs as one f32 stream for kernels C and D.
+
+    :param fine/coarse: [N] arrays or tensors (coarse ignored, and may be
+        None, for level 0)
+    :param device: defaults to the device of ``fine`` (the current CUDA
+        device for numpy input)
+    """
+    device = resolve_device(device, like=fine)
+    f = as_f32_tensor(fine, device)
+    c = None if is_level0 or coarse is None else as_f32_tensor(coarse, device)
+    return pack_streams([f], [c], [not is_level0])
+
+
 def moment_pipeline_from_samples(fine, coarse, n_moments, *, domain,
                                  ref_domain=(-1.0, 1.0), basis="legendre",
                                  is_level0=False, device=None):
@@ -762,10 +802,7 @@ def moment_pipeline_from_samples(fine, coarse, n_moments, *, domain,
         device for numpy input)
     :return: SynthMomentResult (float64 sums, int64 n_valid)
     """
-    device = resolve_device(device, like=fine)
-    f = _as_f32_tensor(fine, device)
-    c = None if is_level0 or coarse is None else _as_f32_tensor(coarse, device)
-    streams = pack_streams([f], [c], [not is_level0])
+    streams = level_stream(fine, coarse, is_level0=is_level0, device=device)
     return _per_level(samples_moments(streams, int(n_moments), domain=domain,
                                       ref_domain=ref_domain, basis=basis))[0]
 
@@ -830,8 +867,8 @@ def mlmc_moment_pipeline_from_samples(fine, coarse, n_per_level, n_moments,
                          % (len(has_coarse), len(counts)))
     sizes = [_pow2_chunks(n, chunk) * chunk for n in counts]
     device = resolve_device(device, like=fine)
-    f = _as_f32_tensor(fine, device)
-    c = _as_f32_tensor(coarse, device)
+    f = as_f32_tensor(fine, device)
+    c = as_f32_tensor(coarse, device)
     if f.numel() != sum(sizes) or c.numel() != sum(sizes):
         raise ValueError("packed buffers hold %d samples, the chunk layout "
                          "needs %d" % (f.numel(), sum(sizes)))

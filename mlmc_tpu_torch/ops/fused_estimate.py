@@ -153,48 +153,49 @@ def _np(x):
     return np.asarray(x)
 
 
+def telescope(sums, sums2, cov_fine, cov_coarse, n_valid):
+    """MLMC estimates from per-level accumulators stacked over levels (axis
+    0): the one rule of the fused drivers and both stored-sample tiers.
+
+    Level l of n = n_valid samples has mean sum / n and variance
+    (sums2 - sum^2 / n) / (n - 1), with divisors max(n, 1) and max(n - 1,
+    1): a level with n = 0 has mean 0, one with n <= 1 variance inf. The
+    estimate sums the level means, the level variances over max(n, 1),
+    and cov_fine / n - cov_coarse / n.
+
+    :param sums, sums2: [L, ..., R]; cov_fine, cov_coarse: [L, ..., R, R];
+        n_valid: [L, ...] (host arrays)
+    :return: dict with l_means, l_vars [L, ..., R], mean, var [..., R],
+        cov [..., R, R], n_samples [L, ...] (float)
+    """
+    s, s2, cf = (np.asarray(a, dtype=np.float64) for a in (sums, sums2, cov_fine))
+    cc = np.array(cov_coarse, dtype=np.float64)
+    cc[0] = 0.0                      # level 0 has no coarse part
+    n_samples = np.asarray(n_valid, dtype=np.float64)
+    k = n_samples[..., None]
+    n = np.maximum(k, 1.0)
+    l_means = np.where(k > 0, s / n, 0.0)
+    l_vars = np.where(k > 1, (s2 - s * s / n) / np.maximum(k - 1.0, 1.0), np.inf)
+    return dict(l_means=l_means, l_vars=l_vars, mean=l_means.sum(axis=0),
+                var=(l_vars / n).sum(axis=0),
+                cov=(cf / n[..., None] - cc / n[..., None]).sum(axis=0),
+                n_samples=n_samples)
+
+
 def accumulators_to_estimates(accs):
     """Combine per-level accumulators into MLMC estimates (host, numpy).
 
     :param accs: list of MomentAccumulators or SynthMomentResult (one per
         level; tensors on any device or numpy arrays)
-    :return: dict with l_means [L, R], l_vars [L, R], mean [R], var [R],
-        cov [R, R] (telescoped fine-coarse), n_samples [L]
+    :return: ``telescope``'s dict: l_means [L, R], l_vars [L, R], mean [R],
+        var [R], cov [R, R] (telescoped fine-coarse), n_samples [L]
     """
     with profiling.span("fused.fetch"):
         host = [[_np(f) for f in (a.sums, a.sums2, a.n_valid, a.cov_fine, a.cov_coarse)]
                 for a in accs]
     with profiling.span("fused.host"):
-        l_means, l_vars, ns, covs = [], [], [], []
-        for lvl, (sums, sums2, n_valid, cov_fine, cov_coarse) in enumerate(host):
-            s = sums.astype(np.float64)
-            s2 = sums2.astype(np.float64)
-            n = float(n_valid)
-            ns.append(n)
-            # degenerate counts: n == 0 -> zero mean / infinite variance,
-            # n == 1 -> infinite variance
-            safe_n = max(n, 1.0)
-            mean = s / safe_n
-            var = ((s2 - s * s / safe_n) / (n - 1) if n > 1
-                   else np.full_like(s, np.inf))
-            if n == 0:
-                mean = np.zeros_like(s)
-            l_means.append(mean)
-            l_vars.append(var)
-            cf = cov_fine.astype(np.float64) / safe_n
-            cc = cov_coarse.astype(np.float64) / safe_n
-            covs.append(cf - cc if lvl > 0 else cf)
-        l_means = np.stack(l_means)
-        l_vars = np.stack(l_vars)
-        ns = np.asarray(ns)
-        return dict(
-            l_means=l_means,
-            l_vars=l_vars,
-            mean=l_means.sum(axis=0),
-            var=(l_vars / np.maximum(ns, 1.0)[:, None]).sum(axis=0),
-            cov=np.sum(covs, axis=0),
-            n_samples=ns,
-        )
+        sums, sums2, n_valid, cov_fine, cov_coarse = (np.stack(f) for f in zip(*host))
+        return telescope(sums, sums2, cov_fine, cov_coarse, n_valid)
 
 
 def fused_mlmc_moments(sim_chunk_fns, moments_fn, seed, n_samples_per_level,

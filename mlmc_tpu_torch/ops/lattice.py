@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from mlmc_tpu_torch.device import resolve_device
-from mlmc_tpu_torch.ops.cuda_kernels import _MASK32
+from mlmc_tpu_torch.ops.cuda_kernels import MASK32
 from mlmc_tpu_torch.random.keyed import keyed_words
 
 __all__ = ["cbc_vector", "lattice_points", "lattice_points_extensible",
@@ -185,7 +185,7 @@ def _mul_lo_words(a, b):
     """Low 32 bits of ``a * b`` for int64 tensors holding uint32 values
     (the uint32 wrap of ``mlmc_tpu``'s node formula), from 16-bit halves
     of ``b`` so no product leaves int64."""
-    return (a * (b & 0xFFFF) + (((a * (b >> 16)) & 0xFFFF) << 16)) & _MASK32
+    return (a * (b & 0xFFFF) + (((a * (b >> 16)) & 0xFFFF) << 16)) & MASK32
 
 
 def _z_words(z, n, device):
@@ -223,7 +223,7 @@ def lattice_points(z, n, shift=None, start=0, count=None, dtype=torch.float32,
     if count is None:
         count = n
     zz = _z_words(z, n, device)
-    i = (int(start) + torch.arange(int(count), dtype=torch.int64, device=device)) & _MASK32
+    i = (int(start) + torch.arange(int(count), dtype=torch.int64, device=device)) & MASK32
     frac = (_mul_lo_words(i[:, None], zz[None, :]) & (n - 1)).to(dtype) / n
     return _shifted(frac, shift, dtype)
 
@@ -245,7 +245,7 @@ def lattice_points_extensible(z, n_max, shift=None, start=0, count=None,
     if count is None:
         count = n_max - int(start)
     bits = int(n_max - 1).bit_length()
-    i = (int(start) + torch.arange(int(count), dtype=torch.int64, device=device)) & _MASK32
+    i = (int(start) + torch.arange(int(count), dtype=torch.int64, device=device)) & MASK32
     rev = torch.zeros_like(i)
     for b in range(bits):
         rev = rev | (((i >> b) & 1) << (bits - 1 - b))

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from mlmc_tpu_torch.device import resolve_device
-from mlmc_tpu_torch.ops.cuda_kernels import _MASK32
+from mlmc_tpu_torch.ops.cuda_kernels import MASK32
 from mlmc_tpu_torch.random.keyed import keyed_words
 
 _MAXBIT = 30  # scipy's Joe-Kuo table stores 30-bit direction numbers
@@ -55,8 +55,8 @@ def direction_numbers(dim):
 def _words(x, device=None):
     """uint32 words (numpy or tensor) as an int64 tensor."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.int64) & _MASK32
-    return torch.as_tensor(np.asarray(x, dtype=np.int64), device=device) & _MASK32
+        return x.to(device=device, dtype=torch.int64) & MASK32
+    return torch.as_tensor(np.asarray(x, dtype=np.int64), device=device) & MASK32
 
 
 def _reverse_bits32(x):
@@ -65,21 +65,21 @@ def _reverse_bits32(x):
     for sh, m in ((1, 0x55555555), (2, 0x33333333), (4, 0x0F0F0F0F), (8, 0x00FF00FF)):
         y = (x >> sh) & m
         x = (x & m).bitwise_left_shift_(sh).bitwise_or_(y)
-    return ((x << 16) & _MASK32).bitwise_or_(x >> 16)
+    return ((x << 16) & MASK32).bitwise_or_(x >> 16)
 
 
 def _mul_lo(x, m):
     """Low 32 bits of ``x * m`` (x: int64 words, m: uint32 constant), from
     m's 16-bit halves: no product leaves int64."""
     hi = (x * (m >> 16)).bitwise_and_(0xFFFF).bitwise_left_shift_(16)
-    return (x * (m & 0xFFFF)).add_(hi).bitwise_and_(_MASK32)
+    return (x * (m & 0xFFFF)).add_(hi).bitwise_and_(MASK32)
 
 
 def _laine_karras(x, seed):
     """Avalanche hash whose output bit b depends only on input bits <= b
     (plus the seed): a nested-uniform scramble in reversed-bit order
     (Burley 2020)."""
-    x = (x + seed).bitwise_and_(_MASK32)
+    x = (x + seed).bitwise_and_(MASK32)
     for m in (0x6C50B47C, 0xB82F1E52, 0xC7AFE638, 0x8D22F6E6):
         x.bitwise_xor_(_mul_lo(x, m))
     return x
@@ -104,11 +104,11 @@ def sobol_bits(dv, start, n, device=None):
     # a table of the 2^k low parts XORed with a table of the few high parts
     k = max(min((n - 1).bit_length(), 16), 1) // 2 + 1
     lo_mask = (1 << k) - 1
-    idx = (start + torch.arange(n, dtype=torch.int64, device=device)) & _MASK32
+    idx = (start + torch.arange(n, dtype=torch.int64, device=device)) & MASK32
     lo_table = _gray_points(dv, torch.arange(1 << k, dtype=torch.int64, device=device))
-    if (start & _MASK32) + n <= 1 << 32:        # the high parts run consecutively
-        hi0 = (start & _MASK32) >> k
-        hi_vals = hi0 + torch.arange(((start & _MASK32) + n - 1 >> k) - hi0 + 1 if n else 0,
+    if (start & MASK32) + n <= 1 << 32:        # the high parts run consecutively
+        hi0 = (start & MASK32) >> k
+        hi_vals = hi0 + torch.arange(((start & MASK32) + n - 1 >> k) - hi0 + 1 if n else 0,
                                      dtype=torch.int64, device=device)
         hi_pos = (idx >> k) - hi0
     else:                                       # the indices wrap past 2^32

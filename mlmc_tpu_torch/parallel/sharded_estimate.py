@@ -68,7 +68,7 @@ def sharded_synth_pipeline_from_noise(sample_mesh, n_moments, level_steps, *,
                                       domain, chunk: int = 1024):
     """Noise-input twin of ``sharded_synth_pipeline``: every level's noise
     is split into equal contiguous shares; shard ``s`` maps its share to
-    QoIs (``x + h sqrt(1e-4 + |x|)`` in f32, as the JAX step), packs the
+    QoIs (``cuda_kernels.synth_qoi``, as the JAX step), packs the
     levels (``pack_level_samples``) and reduces them in one launch of
     kernel C (``mlmc_moment_pipeline_from_samples``); the accumulators
     are summed over the mesh.
@@ -88,13 +88,12 @@ def sharded_synth_pipeline_from_noise(sample_mesh, n_moments, level_steps, *,
         per_shard = []
         for s, device in sample_mesh.local_shards():
             fine_l, coarse_l = [], []
-            for lvl, (x, h) in enumerate(zip(xs, level_steps)):
+            for lvl, x in enumerate(xs):
                 lo, hi = sample_mesh.bounds(x.numel(), s)
-                x = x[lo:hi].to(device=device, dtype=torch.float32)
-                err = ck._sqrt_f32(ck._ERR_FLOOR_F32 + torch.abs(x))
-                fine_l.append(x + ck._f32(h) * err)
-                coarse_l.append(None if lvl == 0
-                                else x + ck._f32(level_steps[lvl - 1]) * err)
+                fine, coarse = ck.synth_qoi(x[lo:hi].to(device), level_steps[lvl],
+                                            level_steps[lvl - 1] if lvl else 0.0)
+                fine_l.append(fine)
+                coarse_l.append(coarse if lvl else None)
             fine, coarse, counts = ck.pack_level_samples(fine_l, coarse_l,
                                                          chunk=chunk)
             per_shard.append(ck.mlmc_moment_pipeline_from_samples(

@@ -29,7 +29,7 @@ from typing import NamedTuple
 import torch
 
 from mlmc_tpu_torch.ops.cuda_kernels import (
-    _MASK32, _key_words, box_muller, philox4x32_10)
+    MASK32, key_words, box_muller, philox4x32_10)
 
 WIDE = 1 << 31
 CALL_BITS = 20
@@ -47,7 +47,7 @@ def _word_blocks(seed, level_id, indices, attempts, n_calls, first_call=0):
             and first_call + n_calls <= 1 << CALL_BITS):
         raise ValueError("a sample takes 1 .. 2^%d Philox calls (numbered from "
                          "0), got %d from call %d" % (CALL_BITS, n_calls, first_call))
-    key = _key_words(seed)
+    key = key_words(seed)
     level_word = WIDE | (int(level_id) & (WIDE - 1))
     calls = torch.arange(first_call, first_call + n_calls, dtype=torch.int64,
                          device=indices.device)
@@ -56,7 +56,7 @@ def _word_blocks(seed, level_id, indices, attempts, n_calls, first_call=0):
     for start in range(0, indices.shape[0], step):
         idx = indices[start:start + step, None]
         c3 = salt[start:start + step, None] | calls[None, :]
-        c0 = (idx & _MASK32).expand_as(c3)
+        c0 = (idx & MASK32).expand_as(c3)
         c1 = (idx >> 32).expand_as(c3)
         c2 = torch.full_like(c3, level_word)
         yield torch.stack(philox4x32_10((c0, c1, c2, c3), key), dim=-1)
@@ -140,13 +140,13 @@ def keyed_call_normals(seed, level_id, indices, calls, dtype=torch.float32):
     :return: tensor [B, n]
     """
     calls = calls.to(device=indices.device, dtype=torch.int64)
-    if calls.numel() and not (int(calls.min()) >= 0 and int(calls.max()) <= _MASK32):
+    if calls.numel() and not (int(calls.min()) >= 0 and int(calls.max()) <= MASK32):
         raise ValueError("Philox calls are numbered 0 .. 2^32 - 1")
     c3 = calls[None, :].expand(indices.shape[0], -1)
     idx = indices[:, None].expand_as(c3)
-    words = philox4x32_10((idx & _MASK32, idx >> 32,
+    words = philox4x32_10((idx & MASK32, idx >> 32,
                            torch.full_like(c3, WIDE | (int(level_id) & (WIDE - 1))), c3),
-                          _key_words(seed))
+                          key_words(seed))
     return box_muller(words[0], words[1])[0].to(dtype)
 
 

@@ -35,7 +35,6 @@ float64) precision whatever the process's TF32 setting. ``key`` arguments
 become ``seed: int``; ``device`` (None: the current CUDA device) says
 where a run without a mesh computes.
 """
-import itertools
 import time
 from math import comb as _comb
 from typing import Callable, Optional
@@ -45,6 +44,7 @@ import torch
 
 from mlmc_tpu_torch.device import resolve_device
 from mlmc_tpu_torch.parallel.mesh import single_device_mesh
+from mlmc_tpu_torch.pce import total_degree_indices
 from mlmc_tpu_torch.random.keyed import keyed_normals
 from mlmc_tpu_torch.sim.sde import _scheme_increment, _system_step
 from mlmc_tpu_torch.sim.simulation import ieee_float32_matmuls
@@ -59,20 +59,6 @@ def put_payoff(strike):
 
 def call_payoff(strike):
     return lambda s: torch.clamp(s - strike, min=0.0)
-
-
-def total_degree_indices(d, degree):
-    """All multi-indices alpha in N^d with |alpha| <= degree, graded
-    lexicographically (the order of ``mlmc_tpu.pce.total_degree_indices``,
-    whose port waits for ``pce``): int array [P, d], P = C(d + p, p)."""
-    out = []
-    for total in range(degree + 1):
-        for c in itertools.combinations_with_replacement(range(d), total):
-            alpha = [0] * d
-            for k in c:
-                alpha[k] += 1
-            out.append(alpha)
-    return np.asarray(out, dtype=np.int32)
 
 
 def _poly_basis(x, degree):

@@ -135,10 +135,10 @@ class SynthSimulation(Simulation):
             device; values float32
         """
         from mlmc_tpu_torch.ops.cuda_kernels import (
-            _MASK32, _key_words, box_muller, philox4x32_10)
+            MASK32, key_words, box_muller, philox4x32_10)
 
-        key = _key_words(seed)
-        counter = (indices & _MASK32, indices >> 32,
+        key = key_words(seed)
+        counter = (indices & MASK32, indices >> 32,
                    torch.full_like(indices, int(level_id)), attempts << 8)
 
         def philox(j):

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from mlmc_tpu_torch.ops import _build
+from mlmc_tpu_torch.tool.timing import smi
 
 ITERS = 4000
 NACC = 8
@@ -82,16 +83,10 @@ __global__ void k_dfma(double* out, int iters) {
             "  return (int)cudaGetLastError();\n}\n")
 
 
-def _smi(query):
-    out = subprocess.run(["nvidia-smi", "--query-gpu=" + query, "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("dmma_rates: needs a CUDA device")
-    print(_smi("name,power.limit"))
+    print(smi("name,power.limit"))
     with tempfile.TemporaryDirectory() as tmp:
         src, lib_path = Path(tmp) / "rates.cu", Path(tmp) / "librates.so"
         src.write_text(_source())
@@ -102,7 +97,7 @@ def main():
         lib.run.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                             ctypes.c_int]
         n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-        sm_hz = float(_smi("clocks.max.sm").split()[0]) * 1e6
+        sm_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
         out = torch.empty(n_sm * 8 * 128, dtype=torch.float64, device="cuda")
         fma_per = [f for *_, f in SHAPES] + [32]
         for which, name in enumerate([n for n, *_ in SHAPES] + ["dfma"]):

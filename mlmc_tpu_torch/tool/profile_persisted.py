@@ -25,7 +25,6 @@ import collections
 import json
 import os
 import shutil
-import subprocess
 import tempfile
 import time
 
@@ -35,16 +34,10 @@ import mlmc_tpu_torch as mt
 from mlmc_tpu_torch import native, sample_storage_bin
 from mlmc_tpu_torch.ops import _build
 from mlmc_tpu_torch.quantity import quantity
+from mlmc_tpu_torch.tool.timing import smi
 
 LEVELS = [[0.1], [0.01], [0.001]]
 FULL = [1 << 21, 1 << 19, 1 << 17]
-
-
-def _smi(query):
-    out = subprocess.run(["nvidia-smi", "--query-gpu=" + query,
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    return out.stdout.strip() or "nvidia-smi: " + out.stderr.strip()
 
 
 class Timers:
@@ -109,7 +102,7 @@ def main():
         raise SystemExit("profile_persisted: the sample-log library did not "
                          "build:\n%s" % native.build_error())
     dev = torch.device("cuda", 0)
-    print(_smi("name,power.limit"))
+    print(smi("name,power.limit"))
     _build.load_library("samples_mlmc")     # kernels C, D: built before timing
     timers = Timers()
     bin_cls = sample_storage_bin.SampleStorageBin
@@ -134,7 +127,7 @@ def main():
     for owner, attr, name in write_steps + read_steps:
         timers.wrap(owner, attr, name)
     directory = tempfile.mkdtemp(prefix="mlmc_profile_persisted_")
-    out = {"card": _smi("name,power.limit"), "samples": sum(FULL)}
+    out = {"card": smi("name,power.limit"), "samples": sum(FULL)}
     try:
         half = [n // 2 for n in FULL]
         for title, counts in (("stage 1 (first half of every level)", half),

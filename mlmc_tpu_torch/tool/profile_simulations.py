@@ -31,7 +31,6 @@ GRF) of ``chip_smoke.py``:
    contrast 1e3): Var(fine - coarse) / Var(fine) and corr(fine, coarse)
    over 8 keyed batches of 64 samples, batch by batch and over all 512.
 """
-import subprocess
 import time
 
 import numpy as np
@@ -44,15 +43,9 @@ from mlmc_tpu_torch.sim import diffusion
 from mlmc_tpu_torch.sim.diffusion import DiffusionSimulation
 from mlmc_tpu_torch.sim.diffusion3d import DiffusionSimulation3D
 from mlmc_tpu_torch.sim.shooting import ShootingSimulation1D
+from mlmc_tpu_torch.tool.timing import smi
 
 SEED = 2024
-
-
-def _smi(query):
-    out = subprocess.run(["nvidia-smi", "--query-gpu=" + query,
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    return out.stdout.strip() or "nvidia-smi: " + out.stderr.strip()
 
 
 def _mean_ms(fn, reps):
@@ -183,7 +176,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_simulations: needs a CUDA device")
     dev = torch.device("cuda", 0)
-    print(_smi("name,power.limit"))
+    print(smi("name,power.limit"))
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     shoot = ShootingSimulation1D(dict(
@@ -254,7 +247,7 @@ def main():
     print("the 3-D fractured batch's coupling, 8 keyed batches of 64 samples:")
     fractured_coupling(FracturedDiffusionSimulation3D, f3_cfg, 8, 64)
     print("after the runs (clocks.sm, power.draw, power.limit, temperature): "
-          + _smi("clocks.current.sm,power.draw,power.limit,temperature.gpu"))
+          + smi("clocks.current.sm,power.draw,power.limit,temperature.gpu"))
 
 
 if __name__ == "__main__":

@@ -23,7 +23,9 @@ Newton restarts; the exp argument is clipped to +-200.
 API: ``SimpleDistribution`` (estimate_density_minimize, density, cdf),
 ``compute_(semi)exact_{moments,cov}``, ``KL_divergence``, ``L2_distance``,
 ``detect_treshold_slope_change``,
-``lsq_reconstruct`` and ``construct_ortogonal_moments``.
+``lsq_reconstruct``, ``construct_ortogonal_moments`` and
+``density_from_moments`` (the stored fast tier's and ``FusedMLMC``'s
+density from a covariance and means).
 """
 import types
 
@@ -754,3 +756,23 @@ def construct_ortogonal_moments(moments, cov, tol=None):
 
     ortogonal_moments = mlmc_tpu_torch.moments.TransformedMoments(moments, L)
     return ortogonal_moments, (eigvals, cut, L)
+
+
+def density_from_moments(moments_fn, cov, mean, *, tol, reg_param,
+                         orth_moments_tol, device):
+    """Maxent density from a moment covariance and the moment means:
+    orthogonalize the basis against ``cov``, rotate the means (mu_orth =
+    L @ mu), Newton solve on ``device``.
+
+    :return: (SimpleDistribution, info, solver result, orthogonal basis)
+    """
+    with profiling.span("density.orth"):
+        moments_obj, info = construct_ortogonal_moments(
+            moments_fn, cov, tol=orth_moments_tol)
+    mu = info[2] @ mean
+    moments_data = np.stack((mu[:moments_obj.size], np.ones(moments_obj.size)),
+                            axis=1)
+    distr_obj = SimpleDistribution(moments_obj, moments_data,
+                                   domain=moments_obj.domain, device=device)
+    result = distr_obj.estimate_density_minimize(tol, reg_param)
+    return distr_obj, info, result, moments_obj

@@ -1,4 +1,5 @@
-"""Two ways of timing a call on the card with CUDA events.
+"""Two ways of timing a call on the card with CUDA events, and the card's
+own report (``smi``) to print beside every time.
 
 ``event_ms`` times single calls: one event before the call, one after. The
 span holds the host's launch path as well as the device's work, since the
@@ -7,8 +8,20 @@ alone: the calls are queued behind a spin kernel, so the host has enqueued
 them all before the device starts the first, and they run back to back.
 For a call of a few tens of microseconds the two differ by the host path.
 """
+import subprocess
+
 import numpy as np
 import torch
+
+
+def smi(query):
+    """The first card's answer to ``nvidia-smi --query-gpu=<query>`` (e.g.
+    ``"name,power.limit"``), or the tool's error."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=" + query,
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    lines = out.stdout.strip().splitlines()
+    return lines[0] if lines else "nvidia-smi: " + out.stderr.strip()
 
 
 def event_ms(fn, reps=5):

@@ -68,14 +68,14 @@ def test_fast_tier_accumulators_match_jax(structured):
         (lambda r: r["length"][1]["10"][0, 0])
     je, te = _estimates(select)
     comps = list(range(4 if structured else 1))
-    got = te._fast_results_packed(te._moments_fn, comps)
+    got = te._stream_results(te._moments_fn, comps)       # [level, component, ...]
     want = je._fast_results_packed(je._moments_fn, comps)
     bounds = _bound_per_stream(te, comps)
     for i, m in enumerate(comps):
-        for lvl, (g, w) in enumerate(zip(got[m], want[m])):
-            assert int(g.n_valid) == int(w.n_valid), (m, lvl)
+        for lvl, w in enumerate(want[m]):
+            assert int(got.n_valid[lvl, i]) == int(w.n_valid), (m, lvl)
             for f, bound in bounds[i * len(STEPS) + lvl].items():
-                err = np.abs(getattr(g, f) - np.asarray(getattr(w, f)))
+                err = np.abs(getattr(got, f)[lvl, i] - np.asarray(getattr(w, f)))
                 assert np.all(err <= bound), (m, lvl, f)
     # the public views combine the same accumulators
     for fn in ("estimate_moments_fast", "estimate_covariance_fast"):
@@ -100,7 +100,7 @@ def test_structured_diff_vars_shared_validity():
     assert ns.tolist() == jns.tolist() == np.asarray(dag.n_samples).astype(int).tolist()
     assert np.array_equal(dag.n_samples, jdag.n_samples)
     # the clipping does differ between components
-    single = [int(te._fast_results_packed(te._moments_fn, [m])[m][0].n_valid)
+    single = [int(te._stream_results(te._moments_fn, [m]).n_valid[0, 0])
               for m in range(2)]
     assert len(set(single)) > 1 and min(single) > ns[0]
     assert raw.shape == np.asarray(jraw).shape == (2, 2 * 5)
@@ -132,7 +132,8 @@ def test_extended_tier_matches_jax_double_float_kernel():
 
     je, te = _estimates(lambda r: r["length"][1]["10"][0, 0],
                         counts=(700, 200), f32_values=True)
-    got = te._extended_results(te._moments_fn, [0])[0][1]
+    got = mt.ExtendedMomentResult(*(
+        f[1, 0] for f in te._stream_results(te._moments_fn, [0], f64=True)))
     q = je._gather_level_qoi()[1]
     want = moment_pipeline_from_samples_extended(
         q[0, :, 0], q[0, :, 1], 6, domain=DOMAIN, chunk=1024, interpret=True)
@@ -201,23 +202,29 @@ def test_fast_basis_guards_raise():
             te.estimate_moments_extended(bad)
 
 
-def test_fast_tier_with_empty_trailing_level():
-    """A scheduled-but-empty level flows through the packed fast tier as an
-    empty stream (inf diff-var, zero count)."""
+def _run_with_empty_trailing_level(counts):
+    """Estimate over a stored 5-level synthetic run of ``counts`` samples
+    per level, the last level scheduled but empty."""
     sim = mt.SynthSimulation(dict(distr="norm", complexity=2))
     storage = mt.DeviceMemory(device="cpu")
     sampler = mt.Sampler(storage, mt.DeviceBatchPool(seed=41, min_bucket=64,
                                                      device_results=True,
                                                      device="cpu"),
                          sim, [[0.5], [0.25], [0.125], [0.0625], [0.03125]])
-    sampler.set_initial_n_samples([200, 120, 80, 60, 0])
+    sampler.set_initial_n_samples(list(counts))
     sampler.schedule_samples()
     sampler.ask_sampling_pool_for_samples()
     storage.save_scheduled_samples(4, ["L04_S0000000"])
     assert storage.get_n_levels() == 5 and storage.get_n_collected()[4] == 0
     root = mt.make_root_quantity(storage, sim.result_format())
-    est = mt.Estimate(root["length"][1]["10"][0, 0], storage,
-                      mt.Legendre(5, (-4.0, 4.0)))
+    return mt.Estimate(root["length"][1]["10"][0, 0], storage,
+                       mt.Legendre(5, (-4.0, 4.0)))
+
+
+def test_fast_tier_with_empty_trailing_level():
+    """A scheduled-but-empty level flows through the packed fast tier as an
+    empty stream (inf diff-var, zero count)."""
+    est = _run_with_empty_trailing_level([200, 120, 80, 60, 0])
     raw, ns = est.estimate_diff_vars_fast()
     assert raw.shape[0] == 5 and ns.tolist() == [200, 120, 80, 60, 0]
     assert np.all(np.isinf(raw[4]))
@@ -227,6 +234,73 @@ def test_fast_tier_with_empty_trailing_level():
     np.testing.assert_allclose(e_means, means, rtol=1e-5, atol=1e-6)
     vars_, _ = est.estimate_diff_vars_regression([200, 120, 80, 60, 0], raw_vars=raw)
     assert np.all(np.isfinite(vars_))
+
+
+def _level_estimates(est, tier):
+    """(l_means, l_vars, n_samples) of a stored run's levels by one tier:
+    kernel C, kernel D, or kernel C's accumulators through the fused
+    drivers' ``accumulators_to_estimates``."""
+    if tier == "fused":
+        acc = est._stream_results(est._moments_fn, [0])
+        out = mt.accumulators_to_estimates(
+            [ck.SynthMomentResult(*(f[lvl, 0] for f in acc))
+             for lvl in range(acc.n_valid.shape[0])])
+    else:
+        out = est._telescoped(est._moments_fn, f64=tier == "extended")
+    return out["l_means"], out["l_vars"], out["n_samples"]
+
+
+@pytest.mark.parametrize("tier", ["fast", "extended", "fused"])
+def test_one_rule_for_empty_and_one_sample_levels(tier):
+    """Every tier telescopes by one rule: a level with no sample has mean
+    0 and variance inf, a level of one valid sample variance inf, and each
+    such inf reaches the estimator variance."""
+    est = _run_with_empty_trailing_level([200, 120, 80, 1, 0])
+    l_means, l_vars, ns = _level_estimates(est, tier)
+    assert ns.tolist() == [200, 120, 80, 1, 0]
+    assert np.array_equal(np.isinf(l_vars), np.repeat([[0], [0], [0], [1], [1]], 5, axis=1))
+    assert np.all(l_means[4] == 0) and np.all(l_means[3, 1:] != 0)
+    assert np.all(np.isfinite(l_means))
+    if tier != "fused":
+        mean, var = getattr(est, "estimate_moments_" + tier)()
+        assert np.all(np.isinf(var)) and mean[0] == 1.0
+        np.testing.assert_array_equal(mean, l_means.sum(axis=0))
+
+
+@pytest.mark.parametrize("tier", ["fast", "extended"])
+def test_covariance_means_equal_moment_means(tier):
+    """A tier's covariance call returns its moment call's means, bit for
+    bit, on scalar and structured quantities."""
+    _, _, tst, tr = _pair(seed=3, f32_values=True)
+    for q in (tr["length"][1]["10"][0, 0], tr["length"][1]):
+        est = mt.Estimate(q, tst, mt.Legendre(6, DOMAIN))
+        mean, _ = getattr(est, "estimate_moments_" + tier)()
+        cov, c_mean = getattr(est, "estimate_covariance_" + tier)()
+        np.testing.assert_array_equal(c_mean, mean)
+        assert cov.shape == mean.shape + mean.shape[-1:]
+
+
+def test_fused_driver_and_fast_tier_build_one_density():
+    """``FusedMLMC.construct_density`` over a stored run's kernel C
+    accumulators and ``construct_density_fast`` over the run give the same
+    density (one function builds it from (cov, mean))."""
+    from mlmc_tpu_torch.fused_driver import FusedMLMC
+
+    _, _, tst, tr = _pair(seed=4, counts=(4000, 1000, 300))
+    mfn = mt.Legendre(8, DOMAIN)
+    est = mt.Estimate(tr["length"][1]["10"][0, 0], tst, mfn)
+    acc = est._stream_results(mfn, [0])
+    driver = FusedMLMC([None] * 3, mfn, device="cpu")
+    driver._accs = [ck.SynthMomentResult(*(f[lvl, 0] for f in acc)) for lvl in range(3)]
+    d_fused, info_fused, res_fused, _ = driver.construct_density(tol=1e-8,
+                                                                 orth_moments_tol=1e-4)
+    d_fast, info_fast, res_fast, _ = est.construct_density_fast(
+        tol=1e-8, reg_param=0.01, orth_moments_tol=1e-4)
+    assert res_fused.success and res_fast.success
+    np.testing.assert_array_equal(info_fused[2], info_fast[2])
+    np.testing.assert_array_equal(d_fused.multipliers, d_fast.multipliers)
+    x = np.linspace(-3.9, 3.9, 50)
+    np.testing.assert_array_equal(d_fused.density(x), d_fast.density(x))
 
 
 def test_device_memory_fast_tier_equals_memory():
@@ -244,12 +318,10 @@ def test_device_memory_fast_tier_equals_memory():
                               coarse.astype(np.float32))
     dr = mt.make_root_quantity(dev, mt.SynthSimulation().result_format())
     mfn = mt.Legendre(7, DOMAIN)
-    a = mt.Estimate(tr["length"][1], tst, mfn)._fast_results_packed(mfn, [0, 1])
-    b = mt.Estimate(dr["length"][1], dev, mfn)._fast_results_packed(mfn, [0, 1])
-    for m in (0, 1):
-        for ra, rb in zip(a[m], b[m]):
-            for fa, fb in zip(ra, rb):
-                np.testing.assert_array_equal(fa, fb)
+    a = mt.Estimate(tr["length"][1], tst, mfn)._stream_results(mfn, [0, 1])
+    b = mt.Estimate(dr["length"][1], dev, mfn)._stream_results(mfn, [0, 1])
+    for fa, fb in zip(a, b):
+        np.testing.assert_array_equal(fa, fb)
 
 
 def test_estimate_domain_and_level_samples_match_jax():

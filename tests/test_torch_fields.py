@@ -273,11 +273,11 @@ def test_keyed_counters_cannot_collide():
     # (seed, level, index) has the bare level in word 2
     zero = torch.zeros_like(idx)
     bare = torch.stack(ck.philox4x32_10(
-        (idx & ck._MASK32, idx >> 32, zero + 1, zero), ck._key_words(3)), dim=-1)
+        (idx & ck.MASK32, idx >> 32, zero + 1, zero), ck.key_words(3)), dim=-1)
     assert not torch.equal(bare, words[:, :4])
     marked = torch.stack(ck.philox4x32_10(
-        (idx & ck._MASK32, idx >> 32, zero + (WIDE | 1), (att & 0xFFF) << 20),
-        ck._key_words(3)), dim=-1)
+        (idx & ck.MASK32, idx >> 32, zero + (WIDE | 1), (att & 0xFFF) << 20),
+        ck.key_words(3)), dim=-1)
     assert torch.equal(marked, words[:, :4])
     with pytest.raises(ValueError, match="Philox calls"):
         keyed_words(3, 1, idx, att, (1 << 20) + 1)

@@ -152,6 +152,30 @@ def test_rng_mode_draws_the_philox_stream():
 
 
 @pytest.mark.parametrize("level", [0, 3])
+def test_synth_qoi_is_the_kernel_body_qoi(level):
+    """``synth_qoi`` is numpy's f32 arithmetic of the QoI bit for bit (the
+    values of ``precision.f64_reference_moments``), and kernel C's plain
+    version over its QoIs, with kernel A's transform, gives
+    ``level_moments_plain``'s accumulators bit for bit."""
+    x = _level_noise(n=4096, seed=6)[level]
+    x[:4] = [0.0, -0.0, 1e-42, -3.5]
+    fine_step, coarse_step = STEPS[level], STEPS[level - 1] if level else 0.0
+    fine, coarse = ck.synth_qoi(torch.from_numpy(x), fine_step, coarse_step)
+    err = np.sqrt(np.float32(1e-4) + np.abs(x), dtype=np.float32)
+    assert fine.dtype == coarse.dtype == torch.float32
+    np.testing.assert_array_equal(fine.numpy(), x + np.float32(fine_step) * err)
+    np.testing.assert_array_equal(coarse.numpy(), x + np.float32(coarse_step) * err)
+    body = ck.level_moments_plain(torch.from_numpy(x), 9, fine_step=fine_step,
+                                  coarse_step=coarse_step, has_coarse=level > 0,
+                                  domain=DOMAIN)
+    streams = ck.pack_streams([fine], [coarse if level else None], [level > 0])
+    stream = ck.samples_plain(streams, 9, basis="legendre",
+                              consts=ck.transform_constants(DOMAIN, symmetric=True))
+    for a, b in zip(body, stream):
+        assert torch.equal(a, b[0])
+
+
+@pytest.mark.parametrize("level", [0, 3])
 def test_port_precision_reference_matches_jax(level):
     """The port's copy of the f64 reference and bound equals mlmc_tpu's."""
     x = _level_noise(n=4096, seed=4)[level]

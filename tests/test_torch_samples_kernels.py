@@ -347,8 +347,8 @@ def test_cuda_kernel_d_vs_plain(cuda_device, basis, R):
     streams = _device_streams(cuda_device, sizes=C_SIZES, first_valid=True)
     consts = ck.transform_constants(DOMAIN, REF[basis], f64=True)
     before = cx.samples_ext_cuda.launches
-    got = cx.samples_ext_moments(streams, R, domain=DOMAIN,
-                                 ref_domain=REF[basis], basis=basis)
+    got = ck.samples_moments(streams, R, domain=DOMAIN, ref_domain=REF[basis],
+                             basis=basis, f64=True)
     assert cx.samples_ext_cuda.launches == before + 1
     plain, s_abs = (cx.samples_ext_plain(streams, R, basis=basis, consts=consts,
                                          absolute=a) for a in (False, True))
@@ -362,8 +362,8 @@ def test_cuda_kernel_d_vs_plain(cuda_device, basis, R):
         assert np.all(err <= bound), name
     assert not torch.any(got.cov_coarse[0] != 0)   # no coarse part
     assert all(not torch.any(f[2] != 0) for f in got)   # zero-sample stream
-    again = cx.samples_ext_moments(streams, R, domain=DOMAIN,
-                                   ref_domain=REF[basis], basis=basis)
+    again = ck.samples_moments(streams, R, domain=DOMAIN, ref_domain=REF[basis],
+                               basis=basis, f64=True)
     for a, b in zip(got, again):
         assert torch.equal(a, b)                    # bit-identical launches
 
