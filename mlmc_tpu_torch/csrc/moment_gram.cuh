@@ -1,6 +1,8 @@
 // Moment Gram products on the FP64 tensor cores (sm_90a): the device part
-// shared by kernel A (csrc/synth_mlmc.cu) and kernels C and D
-// (csrc/samples_mlmc.cu).
+// of kernels C and D (csrc/samples_mlmc.cu), and the row build, the
+// division, the instruction and the tile schedule of kernel A
+// (csrc/synth_mlmc.cu, whose warp-specialised block has its own
+// accumulators and budget, stated there).
 //
 // The kernels reduce per-sample basis rows phi_f, phi_c in [R], R <= 32,
 // into five accumulators per level or stream: sum(phi_f - phi_c),
@@ -36,10 +38,9 @@
 //   a second path through the kernel and the reduction. NB is a template
 //   parameter, so the tile loops unroll and the accumulators stay in
 //   registers; one code path serves every R in 1..32.
-// * Work split: the 4 warps of a block take interleaved 32-sample chunks of
-//   the block's span (an Order of block_span; kernel A's RNG mode gives
-//   each lane four consecutive samples in four chunks, csrc/synth_mlmc.cu
-//   SynthOrder). A lane builds one sample's fine and coarse rows in
+// * Work split (kernels C and D): the 4 warps of a block take interleaved
+//   32-sample chunks of the block's span (an Order of block_span). A lane
+//   builds one sample's fine and coarse rows in
 //   lockstep (two independent recurrences) into its warp's private rows
 //   (stride 36 doubles = 4 mod 16: the operand loads and the row stores are
 //   bank-conflict free), __syncwarp, then 4 k-steps. The next chunk's input
@@ -54,8 +55,8 @@
 //   chunks) each lane adds its fragments into its warp's f64 totals in
 //   shared memory and zeroes them, so no chain in registers is longer than
 //   64 products. The totals are plain sums: a warp adds at most
-//   2^16 / 4 / 64 = 256 flushes (kernel A's span; 2^14 / 4 / 64 = 64 in
-//   kernels C and D), about 3e-14 of S_abs in the worst case, inside the
+//   2^14 / 4 / 64 = 64 flushes in kernels C and D (kernel A, in registers:
+//   2^16 / 4 / 64 = 256), about 3e-14 of S_abs in the worst case, inside the
 //   1e-12 contract (measured: PERF.md). Kernel D's bound against an exact
 //   f64 summation (ops/precision.extended_error_bound) counts these steps.
 //   sum(d) and sum(d^2) are direct f64 sums of each sample's difference on
@@ -70,12 +71,13 @@
 //   scatters entry (i, j) of tile (P, J) to cov[a, b] and cov[b, a],
 //   a = 16P + i, b = 8J + j, for a <= b < R only. No atomics: results are
 //   bit-reproducible.
-// * Budget at R = 25 (NB = 4): 96 f64 registers of accumulators per lane
-//   with a coarse part (253-255 registers in all, a few spilled, most in
-//   kernel D, whose recurrences hold f64 values:
+// * Budget at R = 25 (NB = 4), kernels C and D: 96 registers (48 f64) of
+//   accumulators per lane with a coarse part (253-255 registers in all, a
+//   few spilled, most in kernel D, whose recurrences hold f64 values:
 //   mlmc_tpu_torch/tool/kernel_sass.py); per warp 14.4 KB of rows, 12.3 KB
 //   of totals and 0.5 KB of sums: 108.8 KB of dynamic shared memory per
 //   block, two blocks (8 warps) per SM (at R = 32: 124.9 KB, one block).
+//   Kernel A's budget per role is in csrc/synth_mlmc.cu.
 
 #pragma once
 
@@ -362,7 +364,7 @@ __device__ __forceinline__ int tile_index(int nb, int P, int J) {
 
 // The order in which a warp's lanes visit a span's samples: chunk k of
 // warp w takes sample slot (k kWarps + w) kChunk + lane, and runs while
-// its first slot is in the span (kernels C and D, kernel A's memory mode).
+// its first slot is in the span (kernels C and D).
 struct Interleaved {
   __device__ __forceinline__ int64_t slot(int64_t k, int warp, int lane) const {
     return (k * kWarps + warp) * kChunk + lane;

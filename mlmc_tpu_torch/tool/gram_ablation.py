@@ -23,7 +23,7 @@ The variants:
 
 * ``as built``: the sources as they are;
 * ``no DMMA``: the f64 mma instruction replaced by nothing (its operands
-  are still loaded);
+  are still loaded; kernel A's m16n8k4, kernels C and D's m16n8k8);
 * ``no rows``: the basis recurrences and their stores to shared memory
   removed (the Gram tiles run on whatever the rows hold);
 * ``no RNG`` (``--kernel a``): Philox and Box-Muller replaced by a cheap function
@@ -45,8 +45,13 @@ The variants:
 * ``sides in turn`` (``--kernel d``): the fine row built first, then the coarse
   one, instead of both recurrences in lockstep;
 * ``neither``: no DMMA and no rows;
-* ``k blocks/SM``: the block's shared memory padded so that at most k
-  blocks fit on an SM (occupancy).
+* ``serial`` (``--kernel a``): one producer warp and one stage per
+  consumer, so that a producer builds a chunk only once its consumer has
+  emptied the last: the roles hand over one stage at a time with no
+  lookahead, and what is left of the overlap is the tiles of one chunk
+  under the build of the next;
+* ``k blocks/SM`` (``--kernel d``): the block's shared memory padded so
+  that at most k blocks fit on an SM (occupancy).
 
 ``as built, again`` times the unedited sources a second time at the end:
 the two differ by the run's drift. A removed part's cost is the
@@ -67,7 +72,9 @@ kernel A at ``chip_smoke.py``'s headline (1e8 samples over 5 levels, R =
 25, RNG mode; median of 5 single calls), kernel B at its 1e7 normals,
 both as the median of 5 single calls between events (the host's launch
 path included) and queued (the device alone), beside ``torch.randn``
-timed both ways, each build after its SASS summary.
+timed both ways, each build after its SASS summary. Moment counts given
+with ``--parent`` add kernel A per 2^26 samples of one level at each R, as
+``--kernel a`` times it (level 0, coarse, coarse in memory mode).
 """
 import argparse
 import ctypes
@@ -97,6 +104,9 @@ N_NORMALS = 10_000_000
 _DMMA = (re.compile(r'asm\("mma\.sync.*?\);', re.S),
          'asm volatile("" : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3]) '
          ': "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1));')
+_DMMA_K4 = (re.compile(r'asm\("mma\.sync.*?\);', re.S),
+            'asm volatile("" : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3]) '
+            ': "d"(a0), "d"(a1), "d"(b0));')
 _ROWS = ("  constexpr int S = kRowStride;\n",
          "  constexpr int S = kRowStride;\n  if (R > 0) return;\n")
 
@@ -107,7 +117,8 @@ def _cheap_quad(i):
         % (i, j) for j in range(4))
 
 
-_RNG = (re.compile(r"normal_quad\(i >> 2, level, k0, k1\)"), _cheap_quad("i"))
+_RNG = (re.compile(r"normal_at\(static_cast<uint64_t>\(start \+ s\), level, k0, k1\)"),
+        "static_cast<float>(static_cast<int>((start + s) & 1023)) * 0.003f - 1.5f")
 _B_RNG = (re.compile(r"normal_quad\(q0 \+ t, level, k0, k1\)"), _cheap_quad("t"))
 _B_CAP = re.compile(r"constexpr int kNormalsBlocksPerSm = \d+;")
 _SINCOS_APART = ("  return make_float2(r * cosf(angle), r * sinf(angle));\n",
@@ -136,6 +147,9 @@ def _occupancy(blocks_per_sm):
     pad = 228 * 1024 // blocks_per_sm - 4096
     return (_SMEM, "  const size_t b = sizeof(double) * kWarps * warp_doubles(R, (R + 7) / 8);\n"
                    "  return b > %d ? b : %d;" % (pad, pad))
+
+
+_SERIAL = (re.compile(r"constexpr int kRings = [^;]+;"), "constexpr int kRings = 1;")
 
 
 def _time_a(moment_counts, dev, x):
@@ -171,7 +185,8 @@ def _time_b(moment_counts, dev, x):
 
 def _time_turns(moment_counts, dev, x):
     """Kernel A at chip_smoke.py's headline; kernel B and torch.randn at
-    1e7 normals, single calls and queued (R and x are not used)."""
+    1e7 normals, single calls and queued; then kernel A per level at each
+    of moment_counts (_time_a)."""
     a = event_ms(lambda: ck.synth_mlmc_pipeline(
         HEADLINE_SEED, 25, HEADLINE_N, HEADLINE_STEPS, domain=DOMAIN, device=dev))
 
@@ -186,6 +201,7 @@ def _time_turns(moment_counts, dev, x):
     yield 0, ("A %8.4f   B single %7.4f  queued %7.4f   torch.randn single %7.4f  "
               "queued %7.4f" % (a, event_ms(b), queued_ms(b), event_ms(lib),
                                 queued_ms(lib)))
+    yield from _time_a(moment_counts, dev, x)
 
 
 def _time_d(moment_counts, dev, x):
@@ -210,17 +226,15 @@ def _time_d(moment_counts, dev, x):
 VARIANTS = {
     "a": ("synth_mlmc", "2^26 samples of one level", _time_a, {
         "as built": [],
-        "no DMMA": [("moment_gram.cuh",) + _DMMA],
+        "no DMMA": [("synth_mlmc.cu",) + _DMMA_K4],
         "no rows": [("moment_gram.cuh",) + _ROWS],
         "no RNG": [("synth_mlmc.cu",) + _RNG],
         "sin, cos apart": [("synth_mlmc.cu",) + _SINCOS_APART],
         "fast trig": [("synth_mlmc.cu",) + _FAST_TRIG],
         "no division": [("moment_gram.cuh",) + _DIVISION],
         "IEEE division": [("moment_gram.cuh",) + _IEEE_DIV],
-        "neither": [("moment_gram.cuh",) + _DMMA, ("moment_gram.cuh",) + _ROWS],
-        "1 block/SM": [("moment_gram.cuh",) + _occupancy(1)],
-        "2 blocks/SM": [("moment_gram.cuh",) + _occupancy(2)],
-        "3 blocks/SM": [("moment_gram.cuh",) + _occupancy(3)],
+        "neither": [("synth_mlmc.cu",) + _DMMA_K4, ("moment_gram.cuh",) + _ROWS],
+        "serial": [("synth_mlmc.cu",) + _SERIAL],
         "as built, again": [],
     }),
     "b": ("synth_mlmc", "the normals of one level", _time_b, {
@@ -322,5 +336,5 @@ if __name__ == "__main__":
                         help="time kernels A and B against this tree's")
     parser.add_argument("moment_counts", nargs="*", type=int, metavar="R")
     args = parser.parse_args()
-    main(args.kernel, args.moment_counts or {"a": [25, 16], "b": [0], "d": [25]}[args.kernel],
-         args.parent)
+    default = [] if args.parent else {"a": [25, 16], "b": [0], "d": [25]}[args.kernel]
+    main(args.kernel, args.moment_counts or default, args.parent)

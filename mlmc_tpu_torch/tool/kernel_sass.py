@@ -26,6 +26,9 @@ instructions on the path through one turn of the function's outermost
 loop that issues the fewest of them (a branch that this turn need not
 take, such as kernel B's slot-by-slot stores of a range's head and tail
 quads, is left out): for kernel B, one Philox call and four normals.
+``ROLES`` lists the register counts that a warp-specialised kernel's
+``setmaxnreg`` sets per thread (``USETMAXREG`` in SASS), highest first:
+kernel A's consumers and producers; ``reg`` is the count at launch.
 """
 import collections
 import heapq
@@ -48,8 +51,9 @@ INT_OPS = frozenset(("IMAD", "IMUL", "IADD3", "IADD", "VIADD", "LOP3", "LOP", "S
                      "SHL", "SHR", "LEA", "ISETP", "IMNMX", "VIMNMX", "SEL", "PRMT",
                      "IABS", "POPC", "FLO", "BREV", "BMSK", "SGXT"))
 _COUNTED = ("DMMA", "DFMA", "LDL", "STL", "LDL_ALL", "STL_ALL", "F32", "INT",
-            "LOOP_F32", "LOOP_INT")
+            "LOOP_F32", "LOOP_INT", "ROLES")
 _TRIG_SLOW = "105615"  # the accurate sinf/cosf take their slow path from here
+_IMMEDIATE = re.compile(r"(0x[0-9a-f]+|\b\d+)\s*$")
 
 
 def _branch_target(op, args):
@@ -121,7 +125,12 @@ def _count(instrs):
     def in_slow_path(addr):
         return any(lo < addr < hi for lo, hi in skipped)
 
+    roles = set()
     for addr, neg, pred, op, args in instrs:
+        if op == "USETMAXREG":
+            m = _IMMEDIATE.search(args)
+            if m:
+                roles.add(int(m.group(1), 0))
         counts["LDL_ALL"] += op == "LDL"
         counts["STL_ALL"] += op == "STL"
         if in_slow_path(addr):
@@ -130,6 +139,7 @@ def _count(instrs):
         counts["F32"] += op in F32_OPS
         counts["INT"] += op in INT_OPS
     counts["LOOP_INT"], counts["LOOP_F32"] = _loop_turn(instrs, in_slow_path)
+    counts["ROLES"] = sorted(roles, reverse=True)
     return counts
 
 
@@ -151,7 +161,7 @@ def _demangle(names):
 
 def report(lib_path):
     """{mangled kernel name: dict(reg, stack, shared, local, DMMA, DFMA,
-    LDL, STL, LDL_ALL, STL_ALL, F32, INT, LOOP_F32, LOOP_INT)}."""
+    LDL, STL, LDL_ALL, STL_ALL, F32, INT, LOOP_F32, LOOP_INT, ROLES)}."""
     cuobjdump = _tool("cuobjdump")
     res = subprocess.run([cuobjdump, "-res-usage", str(lib_path)],
                          capture_output=True, text=True, timeout=300, check=True)
@@ -166,7 +176,8 @@ def report(lib_path):
                           capture_output=True, text=True, timeout=300, check=True)
     counts = count_sass(sass.stdout)
     for name, info in kernels.items():
-        info.update({op: counts.get(name, {}).get(op, 0) for op in _COUNTED})
+        info.update({op: counts.get(name, {}).get(op, [] if op == "ROLES" else 0)
+                     for op in _COUNTED})
     return kernels
 
 
@@ -217,11 +228,12 @@ def main():
         for mangled, info in sorted(kernels.items(), key=lambda kv: readable[kv[0]]):
             print("  %-60s REG %3d  STACK %4d  SHARED %6d  DMMA %4d  DFMA %5d  "
                   "LDL %3d  STL %3d (all %3d %3d)  F32 %5d  INT %5d  loop F32 %4d "
-                  "INT %4d"
+                  "INT %4d  roles %s"
                   % (readable[mangled][:60], info["reg"], info["stack"], info["shared"],
                      info["DMMA"], info["DFMA"], info["LDL"], info["STL"],
                      info["LDL_ALL"], info["STL_ALL"], info["F32"], info["INT"],
-                     info["LOOP_F32"], info["LOOP_INT"]))
+                     info["LOOP_F32"], info["LOOP_INT"],
+                     "/".join(map(str, info["ROLES"])) or "-"))
 
 
 if __name__ == "__main__":

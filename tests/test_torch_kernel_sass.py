@@ -63,3 +63,20 @@ def test_count_sass_sets_the_trig_slow_path_apart_and_counts_one_loop_turn():
 ])
 def test_short_names(mangled, short):
     assert kernel_sass._short_name(mangled) == short
+
+
+def test_count_sass_reads_the_registers_setmaxnreg_gives_each_role():
+    listing = """
+        Function : _Z17synth_mlmc_kernelILi4EEvPKfPKl
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   ISETP.GE.U32.AND P1, PT, R0, 0x80, PT ;
+        /*0020*/               @P1 BRA 0x60 ;
+        /*0030*/                   USETMAXREG.TRY_ALLOC.CTAPOOL P0, 0xf0 ;
+        /*0040*/              @!P0 BRA 0x30 ;
+        /*0050*/                   EXIT ;
+        /*0060*/                   USETMAXREG.DEALLOC.CTAPOOL 0x58 ;
+        /*0070*/                   EXIT ;
+"""
+    counts = kernel_sass.count_sass(listing)["_Z17synth_mlmc_kernelILi4EEvPKfPKl"]
+    assert counts["ROLES"] == [240, 88]
+    assert kernel_sass.count_sass(LISTING)["_Z6branchPf"]["ROLES"] == []

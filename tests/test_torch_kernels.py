@@ -385,6 +385,13 @@ CUDA_R = [1, 2, 8, 24, 25, 32]
 #: several 32-sample chunks and 64-sample flushes, a zero-sample level,
 #: a single sample, and more than one block (2^16 samples per block)
 CUDA_COUNTS = [(1 << 14) + 1, 65, 0, 63, 1, (1 << 16) + 3]
+#: per-level counts that end inside a stage of kernel A's rings or wrap them
+#: many times: fewer samples than one 32-sample chunk (the fine-only level 0
+#: and a coarse level), a 2^16-sample span less one, a whole span, a span
+#: and 33 (two blocks), beside a zero-sample level
+CUDA_RING_COUNTS = [17, (1 << 16) - 1, 0, (1 << 16) + 33, 1 << 16, 5]
+#: RNG mode: CUDA_COUNTS with a last level of four blocks
+CUDA_RNG_COUNTS = CUDA_COUNTS[:-1] + [1 << 18]
 CUDA_STEPS = STEPS + [STEPS[-1] / 2]
 
 
@@ -415,19 +422,20 @@ def _assert_bit_identical(a, b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("counts", [CUDA_COUNTS, CUDA_RING_COUNTS], ids=["levels", "ring"])
 @pytest.mark.parametrize("R", CUDA_R)
-def test_cuda_memory_mode_vs_plain(cuda_device, R):
+def test_cuda_memory_mode_vs_plain(cuda_device, R, counts):
     xs = [torch.from_numpy(x).to(cuda_device)
-          for x in _noise_counts(CUDA_COUNTS, seed=R)]
+          for x in _noise_counts(counts, seed=R)]
     before = ck.synth_mlmc_cuda.launches
     got = ck.synth_mlmc_pipeline_from_noise(xs, R, CUDA_STEPS, domain=DOMAIN)
     assert ck.synth_mlmc_cuda.launches == before + 1
-    args = (xs, 0, CUDA_COUNTS, *ck._ladder(CUDA_STEPS), R)
+    args = (xs, 0, counts, *ck._ladder(CUDA_STEPS), R)
     plain, s_abs = (ck.synth_mlmc_plain(*args, domain=DOMAIN, device=cuda_device,
                                         absolute=a) for a in (False, True))
-    _assert_vs_plain(got, plain, s_abs, len(CUDA_COUNTS))
+    _assert_vs_plain(got, plain, s_abs, len(counts))
     for lvl in range(len(STEPS)):   # the levels whose steps _f64_ref knows
-        if CUDA_COUNTS[lvl]:
+        if counts[lvl]:
             ref = _f64_ref(xs[lvl].cpu().numpy(), lvl, R, precision=port_precision)
             assert int(got[lvl].n_valid) == ref["n_valid"], lvl
     assert not torch.any(got[0].cov_coarse != 0)          # fine-only level
@@ -456,10 +464,10 @@ CUDA_STARTS = [None, [1, 2, 3, 77, 5, (1 << 16) - 1]]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [CUDA_RNG_COUNTS, CUDA_RING_COUNTS], ids=["levels", "ring"])
 @pytest.mark.parametrize("starts", CUDA_STARTS, ids=["from0", "misaligned"])
 @pytest.mark.parametrize("R", CUDA_R)
-def test_cuda_rng_mode_vs_plain(cuda_device, R, starts):
-    n = CUDA_COUNTS[:-1] + [1 << 18]
+def test_cuda_rng_mode_vs_plain(cuda_device, R, starts, n):
     got = ck.synth_mlmc_pipeline(5, R, n, CUDA_STEPS, domain=DOMAIN,
                                  device=cuda_device, starts=starts)
     plain, s_abs = (ck.synth_mlmc_plain(None, 5, n, *ck._ladder(CUDA_STEPS), R,
